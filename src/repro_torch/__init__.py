@@ -1,0 +1,17 @@
+"""PyTorch + CUDA port of the FGOP reproduction for one NVIDIA H100.
+
+The JAX package ``repro`` is the reference this package is held against;
+nothing here imports it or ``jax``.  Layout mirrors ``repro``:
+
+  kernels/    registry (KernelSpec / Variant / Coalescer), oracles, the
+              CUDA kernel loader
+  csrc/       the hand-written Hopper kernels (K1-K4), built at first use
+  pipelines/  fused solver chains: kernel wrappers + plain versions
+  serve/      SolverMux serving stack (scheduler, cost model, faults)
+  launch/     entry points (``python -m repro_torch.launch.serve_solvers``)
+  core/       FGOP stream descriptors
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
+which runs the plain PyTorch versions; with no GPU and no explicit CPU
+device they raise.
+"""

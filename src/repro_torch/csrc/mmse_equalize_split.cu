@@ -1,0 +1,135 @@
+// K3: fused split re/im MMSE equalizer, one CTA per lane.
+//
+// Replaces: src/repro/pipelines/mmse.py, mmse_equalize_split_pallas
+// (_mmse_split_kernel): the Gram matrix and matched filter of the complex
+// system accumulated straight from the Re/Im planes
+//   Gr = Hr^T Hr + Hi^T Hi   (one stacked sum over [Hr; Hi])
+//   Gi = C - C^T,  C = Hr^T Hi
+//   rhs = [Hs^T [yr; yi] ; Hs^T [yi; -yr]],  Hs = [Hr; Hi]
+// and the real embedding [[Gr + sigma2 I, -Gi], [Gi, Gr + sigma2 I]]
+// (2n x 2n) solved by the fused Cholesky chain of K1.  The output is the
+// real-stacked (2n, k) = [Re x; Im x].
+//
+// What bounds it on an H100: each lane reads 2 m n + 2 m k floats and
+// writes 2 n k; the least work is 2 m n (n + 1) (one triangle of Gr) +
+// 2 m n^2 (C) + 8 m n k + (2n)^3/3 + 2 (2n)^2 k FLOPs.  Both bounds are
+// small; the 4n-step ordered chain on the 2n x 2n embedding, a block
+// barrier per step, is what holds it back.  The design builds only the
+// lower triangle of the embedding (the chain never reads the upper half,
+// which is where -Gi would go, so C is parked there on its way to Gi),
+// keeps planes, system and right-hand sides in shared memory, and shares
+// the chain with K1 and K2.
+#include <cstddef>
+
+#include "lane_common.cuh"
+
+namespace repro_torch {
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+mmse_equalize_split_kernel(const float* __restrict__ Hr,
+                           const float* __restrict__ Hi,
+                           const float* __restrict__ Yr,
+                           const float* __restrict__ Yi,
+                           float* __restrict__ X, int m, int n, int k,
+                           float sigma2, float eps) {
+  extern __shared__ float smem[];
+  const int n2 = 2 * n;
+  float* hr = smem;            // m * n
+  float* hi = hr + m * n;      // m * n
+  float* yr = hi + m * n;      // m * k
+  float* yi = yr + m * k;      // m * k
+  float* g = yi + m * k;       // 2n * 2n
+  float* rhs = g + n2 * n2;    // 2n * k
+  float* col = rhs + n2 * k;   // 2n
+  float* yk = col + n2;        // k
+  float* thresh = yk + k;      // 1
+  const size_t lane = blockIdx.x;
+  for (int e = threadIdx.x; e < m * n; e += blockDim.x) {
+    hr[e] = Hr[lane * m * n + e];
+    hi[e] = Hi[lane * m * n + e];
+  }
+  for (int e = threadIdx.x; e < m * k; e += blockDim.x) {
+    yr[e] = Yr[lane * m * k + e];
+    yi[e] = Yi[lane * m * k + e];
+  }
+  __syncthreads();
+  // split Gram region: Gr into both diagonal blocks (lower triangles), and
+  // C = Hr^T Hi, each entry once, into the upper-right block, which the
+  // chain never reads
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n;
+    const int j = e % n;
+    if (j <= i) {
+      float s = 0.0f;
+      for (int r = 0; r < m; ++r) s += hr[r * n + i] * hr[r * n + j];
+      for (int r = 0; r < m; ++r) s += hi[r * n + i] * hi[r * n + j];
+      if (i == j) s += sigma2;
+      g[i * n2 + j] = s;
+      g[(i + n) * n2 + (j + n)] = s;
+    }
+    float c = 0.0f;
+    for (int r = 0; r < m; ++r) c += hr[r * n + i] * hi[r * n + j];
+    g[i * n2 + (j + n)] = c;
+  }
+  // split matched filter: rr = Hr^T yr + Hi^T yi, ri = Hr^T yi - Hi^T yr
+  for (int e = threadIdx.x; e < n * k; e += blockDim.x) {
+    const int i = e / k;
+    const int c = e % k;
+    float rr = 0.0f;
+    for (int r = 0; r < m; ++r) rr += hr[r * n + i] * yr[r * k + c];
+    for (int r = 0; r < m; ++r) rr += hi[r * n + i] * yi[r * k + c];
+    float ri = 0.0f;
+    for (int r = 0; r < m; ++r) ri += hr[r * n + i] * yi[r * k + c];
+    for (int r = 0; r < m; ++r) ri += hi[r * n + i] * -yr[r * k + c];
+    rhs[i * k + c] = rr;
+    rhs[(i + n) * k + c] = ri;
+  }
+  __syncthreads();
+  // Gi = C - C^T into the whole lower-left block.  Entries go out along
+  // diagonals (j = i + d mod n) so that, at n = 32, a warp's reads of C
+  // and of C^T both fall in distinct banks.
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e % n;
+    const int j = (e / n + i) % n;
+    g[(i + n) * n2 + j] = g[i * n2 + (j + n)] - g[j * n2 + (i + n)];
+  }
+  __syncthreads();
+  chol_chain(g, rhs, n2, k, eps, col, yk, thresh);
+  float* xl = X + lane * n2 * k;
+  for (int e = threadIdx.x; e < n2 * k; e += blockDim.x) xl[e] = rhs[e];
+}
+
+size_t smem_bytes(int m, int n, int k) {
+  const size_t n2 = 2 * static_cast<size_t>(n);
+  return sizeof(float) *
+         (2 * static_cast<size_t>(m) * n + 2 * m * k + n2 * n2 + n2 * k +
+          n2 + k + 1);
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+extern "C" {
+
+size_t mmse_equalize_split_smem(int m, int n, int k) {
+  return repro_torch::smem_bytes(m, n, k);
+}
+
+// hr, hi (batch, m, n), yr, yi (batch, m, k) -> x (batch, 2n, k), float32.
+int mmse_equalize_split_f32(const void* hr, const void* hi, const void* yr,
+                            const void* yi, void* x, int batch, int m, int n,
+                            int k, float sigma2, float eps, void* stream) {
+  using namespace repro_torch;
+  const size_t smem = smem_bytes(m, n, k);
+  cudaError_t err = allow_smem(mmse_equalize_split_kernel, smem);
+  if (err != cudaSuccess) return err;
+  mmse_equalize_split_kernel<<<batch, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(hr), static_cast<const float*>(hi),
+      static_cast<const float*>(yr), static_cast<const float*>(yi),
+      static_cast<float*>(x), m, n, k, sigma2, eps);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,141 @@
+// K4: fused Householder least squares, one CTA per lane.
+//
+// Replaces: src/repro/pipelines/qr_solve.py, qr_solve_pallas
+// (_qr_solve_kernel, reflect_step, back_substitute_r): min(n, m-1)
+// Householder reflections applied to R and to the right-hand sides in the
+// same step (Q is never formed), then a guarded back substitution on the
+// n x n upper triangle of R.
+//
+// What bounds it on an H100: each lane reads m*n + m*k floats and writes
+// n*k; its model work is 2 (m n^2 - n^3/3) + 4 m n k + n^2 k FLOPs.  Both
+// bounds are small; each reflection is three ordered phases (norm and
+// reflector in one warp, the v^T [R | y] dot products, the rank-1 update),
+// so 3 min(n, m-1) + 2n block barriers per lane are what hold it back.
+// The design keeps R, y and the reflector in shared memory, touches only
+// rows k.. of each step (the reflector is exactly zero above k), and
+// zeroes -- never clamps -- a solution component whose pivot falls below
+// the relative threshold, so a rank-deficient lane stays finite.
+#include <cstddef>
+
+#include "lane_common.cuh"
+
+namespace repro_torch {
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+qr_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                float* __restrict__ X, int m, int n, int k, float tiny) {
+  extern __shared__ float smem[];
+  float* r = smem;            // m * n
+  float* y = r + m * n;       // m * k
+  float* v = y + m * k;       // m: reflector
+  float* w = v + m;           // n + k: tau * v^T [R | y]
+  float* tau_s = w + n + k;   // 1
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const size_t lane = blockIdx.x;
+  for (int e = tid; e < m * n; e += nt) r[e] = A[lane * m * n + e];
+  for (int e = tid; e < m * k; e += nt) y[e] = B[lane * m * k + e];
+  __syncthreads();
+
+  const int nref = m > 1 ? min(n, m - 1) : 0;
+  for (int kk = 0; kk < nref; ++kk) {
+    // householder region (warp 0): norm of the masked column, the
+    // sign rule alpha = xk >= 0 ? -norm : norm, v, tau (0 if degenerate)
+    if (tid < 32) {
+      float s = 0.0f;
+      for (int i = kk + tid; i < m; i += 32) s += r[i * n + kk] * r[i * n + kk];
+      const float norm = sqrtf(warp_sum(s));
+      const float xk = r[kk * n + kk];
+      const float alpha = xk >= 0.0f ? -norm : norm;
+      for (int i = tid; i < m; i += 32)
+        v[i] = i < kk ? 0.0f : (i == kk ? xk - alpha : r[i * n + kk]);
+      __syncwarp();
+      float s2 = 0.0f;
+      for (int i = kk + tid; i < m; i += 32) s2 += v[i] * v[i];
+      const float vnorm2 = fmaxf(warp_sum(s2), tiny);
+      if (tid == 0) *tau_s = norm < tiny ? 0.0f : 2.0f / vnorm2;
+    }
+    __syncthreads();
+    const float tau = *tau_s;
+    // w = tau * (v^T R) and tau * (v^T y); v is zero above row kk
+    for (int j = tid; j < n + k; j += nt) {
+      float s = 0.0f;
+      if (j < n) {
+        for (int i = kk; i < m; ++i) s += v[i] * r[i * n + j];
+      } else {
+        for (int i = kk; i < m; ++i) s += v[i] * y[i * k + (j - n)];
+      }
+      w[j] = tau * s;
+    }
+    __syncthreads();
+    // rank-1 updates: R -= v w_R^T, y -= v w_y^T (rows kk.. only)
+    for (int e = kk * n + tid; e < m * n; e += nt)
+      r[e] -= v[e / n] * w[e % n];
+    for (int e = kk * k + tid; e < m * k; e += nt)
+      y[e] -= v[e / k] * w[n + e % k];
+    __syncthreads();
+  }
+
+  // back substitution on R[:n, :n] with the relative deficiency threshold
+  // max(1e-6 * max |diag R|, tiny): a component below it is zeroed
+  if (tid == 0) {
+    float dmax = 0.0f;
+    bool nan = false;
+    for (int i = 0; i < n; ++i) {
+      const float d = fabsf(r[i * n + i]);
+      nan |= isnan(d);
+      dmax = fmaxf(dmax, d);
+    }
+    *tau_s = nan ? NAN : fmaxf(1e-6f * dmax, tiny);
+  }
+  __syncthreads();
+  const float thresh = *tau_s;
+  for (int kk = n - 1; kk >= 0; --kk) {
+    const float rkk = r[kk * n + kk];
+    const bool ok = fabsf(rkk) > thresh;
+    for (int c = tid; c < k; c += nt) w[c] = ok ? y[kk * k + c] / rkk : 0.0f;
+    __syncthreads();
+    for (int e = tid; e < (kk + 1) * k; e += nt) {
+      const int i = e / k;
+      const int c = e % k;
+      if (i == kk)
+        y[e] = w[c];
+      else
+        y[e] -= r[i * n + kk] * w[c];
+    }
+    __syncthreads();
+  }
+  float* xl = X + lane * n * k;
+  for (int e = tid; e < n * k; e += nt) xl[e] = y[e];
+}
+
+size_t smem_bytes(int m, int n, int k) {
+  return sizeof(float) *
+         (static_cast<size_t>(m) * n + m * k + m + n + k + 1);
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+extern "C" {
+
+size_t qr_solve_smem(int m, int n, int k) {
+  return repro_torch::smem_bytes(m, n, k);
+}
+
+// a (batch, m, n) with m >= n, b (batch, m, k) -> x (batch, n, k), float32.
+int qr_solve_f32(const void* a, const void* b, void* x, int batch, int m,
+                 int n, int k, float tiny, void* stream) {
+  using namespace repro_torch;
+  const size_t smem = smem_bytes(m, n, k);
+  cudaError_t err = allow_smem(qr_solve_kernel, smem);
+  if (err != cudaSuccess) return err;
+  qr_solve_kernel<<<batch, kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(x), m, n, k, tiny);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,428 @@
+"""Mixed-traffic solver serving launcher: replay a PUSCH-style trace
+through the registry-driven SolverMux on the GPU and report SLO metrics.
+
+A 5G PUSCH receiver processes traffic in TTI slots; each slot carries a
+mix of per-subcarrier-group MMSE equalizations (the bulk), plus control-
+path Cholesky solves (noise-covariance whitening) and QR least squares
+(channel estimation refits), at several antenna/user sizes.  This
+launcher synthesizes that trace on a virtual clock — every job carries a
+priority class (control-path solves and half the MMSE bulk are
+``hard``-deadline; the rest is ``best_effort`` refinement traffic) —
+submits each slot's jobs with a per-slot deadline, ``poll``s the mux
+once per slot (full lane groups dispatch immediately; partials wait for
+deadline / age / pressure), drains at the end, checks a sample of
+results against the registry oracles, and prints per-pipeline p50/p99
+latency (overall and per priority), throughput, lane utilization,
+padded-lane waste, and — with ``--policy`` — the overload counters
+(dropped / preempted / coalesced) and hard-deadline SLO attainment.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_solvers \
+      --slots 8 --lanes 8 --deadline-ms 2.0 --policy
+
+Every lane group runs as one launch of a hand-written CUDA kernel on
+``--device cuda`` (the default); ``--device cpu`` runs the kernels'
+plain PyTorch versions instead.
+
+Two helpers here are shared infrastructure rather than CLI plumbing:
+
+* :func:`run_overload` — the deterministic synthetic overload scenario
+  (offered load >= 2x lane capacity, mixed priorities, virtual clock)
+  behind the SLO-attainment acceptance test.
+* :func:`replay_trace` / :func:`load_trace` — replay a committed JSON
+  trace (each entry a seed-keyed job, never raw arrays) through a mux on
+  a virtual clock, returning the mux so callers can assert on its
+  ``events`` decision log (the golden trace-replay regression test).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+
+import numpy as np
+
+from repro_torch import kernels as K
+from repro_torch.kernels.common import sample_spd
+from repro_torch.serve import CostModel, ManualClock, OverloadPolicy, SolverMux
+
+SLOT_MS = 0.5          # 5G numerology-1 TTI
+
+
+def job_args(pipeline: str, n: int, k: int, seed: int) -> tuple:
+    """Deterministic per-job problem arrays, keyed by seed — the form
+    committed traces store jobs in (never raw arrays)."""
+    rng = np.random.default_rng(seed)
+    if pipeline == "cholesky_solve":
+        return (sample_spd(rng, 1, n)[0],
+                rng.standard_normal((n, k)).astype(np.float32))
+    m = n + 4
+    return (rng.standard_normal((m, n)).astype(np.float32),
+            rng.standard_normal((m, k)).astype(np.float32))
+
+
+def hard_attainment(jobs) -> float:
+    """Fraction of hard-deadline jobs that finished by their deadline
+    (dropped or late = miss).  NaN when the trace has no hard jobs."""
+    hard = [j for j in jobs
+            if j.priority == "hard" and j.deadline is not None]
+    if not hard:
+        return math.nan
+    met = sum(1 for j in hard
+              if j.state == "done" and j.finished_at <= j.deadline)
+    return met / len(hard)
+
+
+def build_slot_jobs(rng, slot: int, sizes: list[int]):
+    """One TTI's job mix: (pipeline, args, priority) tuples.  Alternate
+    MMSE jobs arrive as SPLIT re/im planes (the form a real front end
+    produces) — the mux routes their 4-arg buckets to the split_complex
+    variant.  Control-path solves and the even MMSE groups are hard-
+    deadline; odd MMSE groups are best-effort refinement passes."""
+    jobs = []
+    for n in sizes:
+        m = n + 4
+        # MMSE bulk: a few subcarrier groups per size per slot
+        for i in range(2 + slot % 2):
+            priority = "hard" if i % 2 == 0 else "best_effort"
+            if i % 2:
+                jobs.append(("mmse_equalize", (
+                    rng.standard_normal((m, n)).astype(np.float32),
+                    rng.standard_normal((m, n)).astype(np.float32),
+                    rng.standard_normal((m, 2)).astype(np.float32),
+                    rng.standard_normal((m, 2)).astype(np.float32)),
+                    priority))
+            else:
+                h = rng.standard_normal((m, n)).astype(np.float32)
+                y = rng.standard_normal((m, 2)).astype(np.float32)
+                jobs.append(("mmse_equalize", (h, y), priority))
+        # control path: whitening solve + channel refit, not every slot
+        if slot % 2 == 0:
+            a = sample_spd(rng, 1, n)[0]
+            b = rng.standard_normal((n, 2)).astype(np.float32)
+            jobs.append(("cholesky_solve", (a, b), "hard"))
+        if slot % 3 == 0:
+            qa = rng.standard_normal((m, n)).astype(np.float32)
+            qb = rng.standard_normal((m, 1)).astype(np.float32)
+            jobs.append(("qr_solve", (qa, qb), "hard"))
+    return jobs
+
+
+# ---------------- committed-trace replay (golden tests) ----------------
+
+def load_trace(path: str) -> list[dict]:
+    """A committed trace: a JSON list of job entries
+    ``{"tick", "pipeline", "n", "k", "priority", "deadline_ticks",
+    "seed"}`` — ``deadline_ticks`` null means no deadline."""
+    with open(path) as f:
+        return json.load(f)
+
+
+def replay_trace(trace: list[dict], *, lanes: int = 4, tick: float = 1.0,
+                 policy: OverloadPolicy | None = None,
+                 max_wait: float | None = None,
+                 pressure: int | None = None,
+                 drain_ticks: int = 2, device=None) -> SolverMux:
+    """Replay a committed trace on a virtual clock: submit each tick's
+    jobs, ``poll`` once per tick, keep polling ``drain_ticks`` empty
+    ticks, then ``run()``.  Returns the mux — its ``events`` list is the
+    exact flush/drop/preempt/coalesce decision sequence a golden file
+    pins."""
+    clock = ManualClock()
+    mux = SolverMux(lanes=lanes, max_wait=max_wait, pressure=pressure,
+                    clock=clock, policy=policy, device=device)
+    by_tick: dict[int, list[dict]] = {}
+    for entry in trace:
+        by_tick.setdefault(int(entry["tick"]), []).append(entry)
+    last = max(by_tick) if by_tick else -1
+    for t in range(last + 1 + drain_ticks):
+        for e in by_tick.get(t, ()):
+            deadline = e.get("deadline_ticks")
+            mux.submit(e["pipeline"],
+                       *job_args(e["pipeline"], e["n"], e["k"], e["seed"]),
+                       deadline=(None if deadline is None
+                                 else clock() + deadline * tick),
+                       priority=e.get("priority", "best_effort"))
+        mux.poll()
+        clock.advance(tick)
+    mux.run()
+    return mux
+
+
+# ---------------- synthetic overload scenario (tests) ----------------
+
+OVERLOAD_TICK = 1.0
+
+
+def overload_trace(ticks: int, lanes: int, seed: int = 0) -> list[dict]:
+    """Synthetic overload: per tick, ``3.5 * lanes`` jobs arrive against
+    a budget of ~2 launches = ``2 * lanes`` job-slots — offered load
+    well over 2x lane capacity in launch terms (the hard MMSE chunk, two
+    best-effort MMSE chunks, and the partial Cholesky buckets each need
+    their own launch).  The mix:
+
+      * ``lanes`` hard MMSE bulk (deadline 3 ticks) — the traffic the
+        SLO is judged by,
+      * ``2 * lanes`` best-effort MMSE refinement with a tight 1.2-tick
+        deadline: under EDF admission these outrank the hard chunks
+        (earlier deadlines) until preemption steps in, and once expired
+        they are dead weight unless shed,
+      * 1 hard n=12 Cholesky whitening solve (deadline 2 ticks) — a
+        chronically partial bucket, and
+      * 1 best-effort n=8 Cholesky solve (deadline 2 ticks) — the
+        coalescing donor that can ride the n=12 partials' free lanes.
+    """
+    trace, seq = [], 0
+    for t in range(ticks):
+        for i in range(lanes):
+            trace.append(dict(tick=t, pipeline="mmse_equalize", n=8, k=2,
+                              priority="hard", deadline_ticks=3.0,
+                              seed=seed * 100003 + seq)); seq += 1
+        for i in range(2 * lanes):
+            trace.append(dict(tick=t, pipeline="mmse_equalize", n=8, k=2,
+                              priority="best_effort", deadline_ticks=1.2,
+                              seed=seed * 100003 + seq)); seq += 1
+        trace.append(dict(tick=t, pipeline="cholesky_solve", n=12,
+                          k=2, priority="hard", deadline_ticks=2.0,
+                          seed=seed * 100003 + seq)); seq += 1
+        trace.append(dict(tick=t, pipeline="cholesky_solve", n=8,
+                          k=2, priority="best_effort",
+                          deadline_ticks=2.0,
+                          seed=seed * 100003 + seq)); seq += 1
+    return trace
+
+
+def run_overload(policy: bool, *, ticks: int = 8, lanes: int = 4,
+                 seed: int = 0, adaptive: bool = False,
+                 device=None) -> dict:
+    """Run the synthetic overload trace with the SAME lane-time budget
+    in both modes; ``policy=True`` additionally enables shedding,
+    preemption, and coalescing.  Returns the summary the acceptance test
+    asserts on.
+
+    ``adaptive=True`` runs the cost model with online calibration ON
+    (real wall-clock measurements feed :meth:`CostModel.observe`) and
+    adds the drift-observability fields (``drift`` /
+    ``calibration_updates``) to the summary."""
+    cm = CostModel(adaptive=adaptive)
+    spec = K.get("mmse_equalize")
+    unit = cm.launch_cost("mmse_equalize", spec.base,
+                          ((12, 8), (12, 2)), lanes)
+    pol = OverloadPolicy(shed=policy, preempt=policy, coalesce=policy,
+                         budget=2.0 * unit, cost_model=cm)
+    trace = overload_trace(ticks, lanes, seed)
+    jobs, clock = [], ManualClock()
+    mux = SolverMux(lanes=lanes, clock=clock, pressure=2 * lanes,
+                    policy=pol, device=device)
+    by_tick: dict[int, list[dict]] = {}
+    for entry in trace:
+        by_tick.setdefault(entry["tick"], []).append(entry)
+    for t in range(ticks + ticks):        # arrival ticks + drain ticks
+        for e in by_tick.get(t, ()):
+            jobs.append(mux.submit(
+                e["pipeline"],
+                *job_args(e["pipeline"], e["n"], e["k"], e["seed"]),
+                deadline=clock() + e["deadline_ticks"] * OVERLOAD_TICK,
+                priority=e["priority"]))
+        mux.poll()
+        clock.advance(OVERLOAD_TICK)
+    mux.run()
+    snap = mux.metrics()
+    summary = {
+        "policy": policy,
+        "jobs": len(jobs),
+        "done": sum(1 for j in jobs if j.state == "done"),
+        "attainment_hard": hard_attainment(jobs),
+        "dropped": snap.total_dropped,
+        "hard_dropped": sum(1 for j in jobs
+                            if j.priority == "hard"
+                            and j.state == "dropped"),
+        "preempted": snap.total_preempted,
+        "coalesced": snap.total_coalesced,
+        "launches": snap.total_launches,
+    }
+    if adaptive:
+        summary["drift"] = {
+            key: {"ratio": st.ratio, "updates": st.updates,
+                  "source": st.source, "alert": st.alert}
+            for key, st in snap.drift.items() if st.updates > 0}
+        summary["calibration_updates"] = snap.calibration_updates
+    return summary
+
+
+def main(argv=None) -> dict | None:
+    """Serve the TTI slot mix and print its SLO report.  Returns the
+    run's summary (jobs, done, hard jobs dropped, the oracle spot-check's
+    relative error, launches), or None for an empty trace."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--slots", type=int, default=8,
+                    help="trace length in TTI slots")
+    ap.add_argument("--lanes", type=int, default=8)
+    ap.add_argument("--sizes", default="8,12",
+                    help="comma-separated antenna sizes n (m = n + 4)")
+    ap.add_argument("--deadline-ms", type=float, default=2.0,
+                    help="per-job deadline after arrival (virtual ms)")
+    ap.add_argument("--max-wait-ms", type=float, default=1.0,
+                    help="partial-bucket age flush threshold (virtual ms)")
+    ap.add_argument("--policy", action="store_true",
+                    help="enable the overload policy: shed expired "
+                         "best-effort jobs and coalesce small ones; add "
+                         "--budget-us for budgeted admission, which is "
+                         "what makes preemption possible")
+    ap.add_argument("--budget-us", type=float, default=None,
+                    help="per-poll lane-time budget in cost-model "
+                         "microseconds (requires --policy)")
+    ap.add_argument("--adapt", action="store_true",
+                    help="close the cost-model loop online: measure "
+                         "every launch, re-fit sec/FLOP + overhead, tune "
+                         "flush thresholds from observed traffic, and "
+                         "report drift (predicted/measured) per variant")
+    ap.add_argument("--device", default="cuda",
+                    help="where every lane group runs: cuda (the "
+                         "hand-written kernels, default) or cpu (their "
+                         "plain PyTorch versions)")
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="lane-shard count; only 1 until mesh sharding "
+                         "is ported")
+    ap.add_argument("--fault-trace", default=None,
+                    help="JSON fault trace (see repro_torch.serve.faults) "
+                         "to inject into the replay via a seeded "
+                         "FaultInjector")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="seed for the fault injector's per-attempt rng "
+                         "streams (requires --fault-trace; a seed in "
+                         "the trace file wins)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="not ported yet (needs mesh sharding)")
+    ap.add_argument("--pusch", action="store_true",
+                    help="not ported yet (the PUSCH/SVD DAG slice)")
+    ap.add_argument("--decode", action="store_true",
+                    help="not ported yet (the LM decode slice)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.pusch:
+        ap.error("--pusch: the served PUSCH/SVD DAGs (kernels K5-K9) are "
+                 "a later slice of the port")
+    if args.decode:
+        ap.error("--decode: token decode (the LM side, K20-K21) is a "
+                 "later slice of the port")
+    if args.chaos:
+        ap.error("--chaos: the chaos scenario needs mesh-sharded lane "
+                 "pools, a later slice of the port")
+    if args.mesh is not None and args.mesh > 1:
+        ap.error(f"--mesh {args.mesh}: mesh sharding is a later slice of "
+                 f"the port")
+    if args.budget_us is not None and not args.policy:
+        ap.error("--budget-us requires --policy")
+    if args.fault_seed is not None and args.fault_trace is None:
+        ap.error("--fault-seed requires --fault-trace")
+    sizes = [int(s) for s in args.sizes.split(",")]
+
+    rng = np.random.default_rng(args.seed)
+    clock = ManualClock()
+    policy, cost_model = None, None
+    budget = None if args.budget_us is None else args.budget_us * 1e-6
+    if args.policy and args.adapt:
+        policy = OverloadPolicy(budget=budget,
+                                cost_model=CostModel(adaptive=True))
+    elif args.policy:
+        policy = OverloadPolicy(budget=budget)
+    elif args.adapt:
+        cost_model = CostModel(adaptive=True)
+    injector = None
+    if args.fault_trace is not None:
+        from repro_torch.serve import FaultInjector
+        injector = FaultInjector.from_json(args.fault_trace,
+                                           seed=args.fault_seed or 0)
+    mux = SolverMux(lanes=args.lanes, max_wait=args.max_wait_ms * 1e-3,
+                    clock=clock, policy=policy, cost_model=cost_model,
+                    adapt=args.adapt or None, mesh_size=args.mesh,
+                    injector=injector, device=args.device)
+
+    t0 = time.perf_counter()
+    jobs, done, sample = [], [], None
+    for slot in range(args.slots):
+        for pipeline, job_arrays, priority in build_slot_jobs(rng, slot,
+                                                              sizes):
+            job = mux.submit(pipeline, *job_arrays,
+                             deadline=clock() + args.deadline_ms * 1e-3,
+                             priority=priority)
+            jobs.append(job)
+            if sample is None and pipeline == "mmse_equalize":
+                sample = job
+        done.extend(mux.poll())
+        clock.advance(SLOT_MS * 1e-3)
+    done.extend(mux.run())
+    wall = time.perf_counter() - t0
+    if mux.pending():
+        raise RuntimeError("mux left jobs queued after drain")
+
+    if not done:
+        print(f"empty trace ({args.slots} slots): nothing served")
+        return None
+
+    # spot-check a served result against the registry oracle (under
+    # fault injection some jobs may be terminally failed — skip those)
+    if sample is None or sample.state != "done":
+        sample = next((j for j in done if j.state == "done"), None)
+    err = math.nan
+    if sample is not None:
+        want = K.get(sample.pipeline).run_oracle_lane(*sample.args)
+        err = float(np.max(np.abs(sample.out - want))
+                    / (np.max(np.abs(want)) + 1e-12))
+        if not err < 1e-3:
+            raise RuntimeError(
+                f"oracle mismatch on sample job: rel err {err:.2e}")
+
+    snap = mux.metrics()
+    print(f"trace: {args.slots} slots x sizes {sizes}, lanes={args.lanes} "
+          f"on {mux.device} -> {snap.total_jobs} jobs in "
+          f"{snap.total_launches} grid launches ({wall:.2f}s wall, oracle "
+          f"check ok)")
+    hdr = (f"{'pipeline':<16} {'jobs':>5} {'launch':>6} {'util':>6} "
+           f"{'waste':>6} {'p50_ms':>8} {'p99_ms':>8} {'hard_p99':>9} "
+           f"{'jobs/s':>10} dispatch")
+    print(hdr)
+    print("-" * len(hdr))
+    for name, st in sorted(snap.pipelines.items()):
+        counts = ",".join(f"{v}:{c}" for v, c in
+                          sorted(st.dispatch_counts.items()))
+        hard = st.latency_by_priority.get("hard")
+        hard_p99 = f"{hard.p99 * 1e3:>9.3f}" if hard else f"{'-':>9}"
+        print(f"{name:<16} {st.jobs:>5} {st.launches:>6} "
+              f"{st.lane_utilization:>6.2f} {st.padded_lane_waste:>6.2f} "
+              f"{st.latency.p50 * 1e3:>8.3f} {st.latency.p99 * 1e3:>8.3f} "
+              f"{hard_p99} {st.throughput:>10.1f} {counts}")
+    missed = sum(1 for j in done
+                 if j.deadline is not None and j.finished_at > j.deadline)
+    print(f"deadline misses (virtual clock): {missed}/{len(done)}")
+    print(f"hard-deadline SLO attainment: {hard_attainment(jobs):.2%}")
+    if policy is not None:
+        print(f"overload policy: dropped={snap.total_dropped} "
+              f"preempted={snap.total_preempted} "
+              f"coalesced={snap.total_coalesced}")
+    if snap.drift:
+        print("cost-model drift (predicted/measured, EWMA ratio):")
+        for key, st in sorted(snap.drift.items()):
+            flag = "  ALERT" if st.alert else ""
+            print(f"  {key:<28} ratio {st.ratio:>8.3f} "
+                  f"updates {st.updates:>4} source {st.source}{flag}")
+        worst = snap.worst_drift
+        if worst is not None:
+            print(f"  worst offender: {worst.key} "
+                  f"(ratio {worst.ratio:.3f})")
+        ups = ",".join(f"{k}={v}" for k, v in
+                       sorted(snap.calibration_updates.items()))
+        print(f"  calibration updates: {ups}")
+    return {
+        "jobs": len(jobs),
+        "done": sum(1 for j in jobs if j.state == "done"),
+        "hard_dropped": sum(1 for j in jobs if j.priority == "hard"
+                            and j.state == "dropped"),
+        "oracle_rel_err": err,
+        "launches": snap.total_launches,
+    }
+
+
+if __name__ == "__main__":
+    main()

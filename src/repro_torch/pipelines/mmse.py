@@ -1,0 +1,184 @@
+"""Fused MMSE equalizer: Gram product + regularize + Cholesky solve +
+combine in one kernel launch — the paper's 5G wireless motivation end to
+end.
+
+Per subcarrier (one lane, one CUDA block) with channel H (m x n) and
+received symbols y (m x k):
+
+    G   = H^T H + sigma2 * I      (Gram region)
+    rhs = H^T y                   (matched filter, same residency)
+    x   = G^{-1} rhs              (fused factor + fwd + bwd substitution)
+
+which is the real-valued LMMSE estimate x = (H^H H + s I)^{-1} H^H y.
+Nothing leaves shared memory between the four stages
+(``csrc/mmse_equalize.cu``, K2).
+
+Complex channels are handled two ways:
+
+  * the standard real expansion [[Re, -Im], [Im, Re]]
+    (:func:`expand_complex_channel`) fed to K2;
+  * the split re/im fast path (``csrc/mmse_equalize_split.cu``, K3):
+    Gram and matched filter accumulated from the Re/Im planes directly
+    (G = Hr^T Hr + Hi^T Hi + i (Hr^T Hi - (Hr^T Hi)^T), the cross term
+    ONE product by antisymmetry), then the same fused Cholesky chain on
+    the real-embedded 2n x 2n system.  Identical output layout
+    [Re x; Im x].  Registered as the ``split_complex`` variant of the
+    ``mmse_equalize`` spec; the dispatcher picks it whenever a job
+    presents 4 (split) planes instead of one expanded matrix.
+
+Each kernel has a plain PyTorch version in this module with the
+reference's per-lane op order; a CPU tensor takes it, a CUDA tensor the
+kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.common import (CudaKernel, check_f32,
+                                        resolve_device)
+from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
+                                                  cholesky_chain_plain)
+
+
+def mmse_equalize_plain(h: torch.Tensor, y: torch.Tensor, *,
+                        sigma2: float = 0.1,
+                        eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """Plain PyTorch version of K2: h (B,M,N), y (B,M,K) -> x (B,N,K)."""
+    n = h.shape[-1]
+    ht = h.transpose(-1, -2)
+    # ---- Gram region: G = H^T H + sigma2 I ----
+    g = ht @ h
+    rows = torch.arange(n, device=h.device)
+    g = g + sigma2 * (rows[:, None] == rows[None, :]).to(g.dtype)
+    # ---- matched filter: rhs = H^T y ----
+    rhs = ht @ y
+    return cholesky_chain_plain(g, rhs, eps=eps)
+
+
+def mmse_equalize_split_plain(hr: torch.Tensor, hi: torch.Tensor,
+                              yr: torch.Tensor, yi: torch.Tensor, *,
+                              sigma2: float = 0.1,
+                              eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """Plain PyTorch version of K3: hr/hi (B,M,N), yr/yi (B,M,K) ->
+    x (B,2N,K) stacked [Re x; Im x]."""
+    n = hr.shape[-1]
+    # ---- split Gram region: Gr = Hs^T Hs on the stacked (2m, n) planes;
+    # Gi = C - C^T from the single cross product C = Hr^T Hi ----
+    hs = torch.cat([hr, hi], dim=-2)                   # (B, 2m, n)
+    hst = hs.transpose(-1, -2)
+    gr = hst @ hs
+    c = hr.transpose(-1, -2) @ hi
+    gi = c - c.transpose(-1, -2)
+    # ---- split matched filter: rhs_r = Hr^T yr + Hi^T yi and
+    # rhs_i = Hr^T yi - Hi^T yr, each one stacked product ----
+    ys = torch.cat([yr, yi], dim=-2)                   # (B, 2m, k)
+    yt = torch.cat([yi, -yr], dim=-2)
+    rr = hst @ ys
+    ri = hst @ yt
+    # ---- real embedding of the Hermitian system (2n x 2n) ----
+    rows_n = torch.arange(n, device=hr.device)
+    gr = gr + sigma2 * (rows_n[:, None] == rows_n[None, :]).to(gr.dtype)
+    g = torch.cat([torch.cat([gr, -gi], dim=-1),
+                   torch.cat([gi, gr], dim=-1)], dim=-2)
+    rhs = torch.cat([rr, ri], dim=-2)                  # (B, 2n, k)
+    return cholesky_chain_plain(g, rhs, eps=eps)
+
+
+_KERNEL = CudaKernel(
+    "mmse_equalize", "mmse_equalize_f32",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
+    "mmse_equalize_smem", 3,
+    source="src/repro_torch/csrc/mmse_equalize.cu",
+    replaces="src/repro/pipelines/mmse.py:78 mmse_equalize_pallas")
+
+_SPLIT_KERNEL = CudaKernel(
+    "mmse_equalize_split", "mmse_equalize_split_f32",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
+    "mmse_equalize_split_smem", 3,
+    source="src/repro_torch/csrc/mmse_equalize_split.cu",
+    replaces="src/repro/pipelines/mmse.py:148 mmse_equalize_split_pallas")
+
+
+def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
+                        sigma2: float = 0.1,
+                        eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """h: (B,M,N) per-subcarrier channels, y: (B,M,K) observations
+    -> x: (B,N,K) equalized symbols; float32, contiguous.  K2 on a CUDA
+    tensor (one launch for the whole chain), its plain version on a CPU
+    one."""
+    dev = check_f32("mmse_equalize", h, y)
+    bsz, m, n = h.shape
+    b2, m2, k = y.shape
+    if not (m == m2 and bsz == b2 and m >= n):
+        raise ValueError(f"mmse_equalize: shapes {tuple(h.shape)}, "
+                         f"{tuple(y.shape)}")
+    if dev.type == "cpu":
+        return mmse_equalize_plain(h, y, sigma2=sigma2, eps=eps)
+    x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
+    if bsz:
+        _KERNEL.launch(dev, (m, n, k), h.data_ptr(), y.data_ptr(),
+                       x.data_ptr(), bsz, m, n, k, sigma2, eps)
+    return x
+
+
+def mmse_equalize_split_fused(hr: torch.Tensor, hi: torch.Tensor,
+                              yr: torch.Tensor, yi: torch.Tensor, *,
+                              sigma2: float = 0.1,
+                              eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """Split re/im fused MMSE equalizer — the complex-native fast path.
+
+    hr/hi: (B,M,N) channel planes, yr/yi: (B,M,K) observations ->
+    x: (B,2N,K) stacked [Re x; Im x] (the real-expansion output layout,
+    so both paths answer the same complex problem identically); float32,
+    contiguous.  K3 on a CUDA tensor, its plain version on a CPU one."""
+    dev = check_f32("mmse_equalize_split", hr, hi, yr, yi)
+    bsz, m, n = hr.shape
+    b2, m2, k = yr.shape
+    if not (hi.shape == hr.shape and yi.shape == yr.shape and m == m2
+            and bsz == b2 and m >= n):
+        raise ValueError(f"mmse_equalize_split: shapes {tuple(hr.shape)}, "
+                         f"{tuple(hi.shape)}, {tuple(yr.shape)}, "
+                         f"{tuple(yi.shape)}")
+    if dev.type == "cpu":
+        return mmse_equalize_split_plain(hr, hi, yr, yi, sigma2=sigma2,
+                                         eps=eps)
+    x = torch.empty((bsz, 2 * n, k), dtype=torch.float32, device=dev)
+    if bsz:
+        _SPLIT_KERNEL.launch(dev, (m, n, k), hr.data_ptr(), hi.data_ptr(),
+                             yr.data_ptr(), yi.data_ptr(), x.data_ptr(),
+                             bsz, m, n, k, sigma2, eps)
+    return x
+
+
+def mmse_equalize(h, y, *, sigma2: float = 0.1,
+                  device=None) -> torch.Tensor:
+    """Public wrapper: h (B,M,N), y (B,M,K) float32 arrays or tensors,
+    equalized on ``device`` (default ``cuda``; ``"cpu"`` runs the plain
+    version)."""
+    dev = resolve_device(device)
+    return mmse_equalize_fused(torch.as_tensor(h, device=dev).contiguous(),
+                               torch.as_tensor(y, device=dev).contiguous(),
+                               sigma2=sigma2)
+
+
+def mmse_equalize_split(hr, hi, yr, yi, *, sigma2: float = 0.1,
+                        device=None) -> torch.Tensor:
+    """Public split-complex wrapper (see :func:`mmse_equalize`)."""
+    dev = resolve_device(device)
+    return mmse_equalize_split_fused(
+        *(torch.as_tensor(p, device=dev).contiguous()
+          for p in (hr, hi, yr, yi)), sigma2=sigma2)
+
+
+def expand_complex_channel(hr: torch.Tensor, hi: torch.Tensor,
+                           yr: torch.Tensor, yi: torch.Tensor):
+    """Real expansion of a complex MIMO system: H -> [[Hr,-Hi],[Hi,Hr]]
+    (2m x 2n), y -> [yr; yi] (2m x k).  The equalized output x (2n x k)
+    splits back as x[:n] + 1j x[n:]."""
+    top = torch.cat([hr, -hi], dim=-1)
+    bot = torch.cat([hi, hr], dim=-1)
+    h = torch.cat([top, bot], dim=-2)
+    y = torch.cat([yr, yi], dim=-2)
+    return h, y
