@@ -5,11 +5,13 @@ nothing here imports it or ``jax``.  Layout mirrors ``repro``:
 
   kernels/    registry (KernelSpec / Variant / Coalescer), oracles, the
               CUDA kernel loader
-  csrc/       the hand-written Hopper kernels (K1-K4), built at first use
-  pipelines/  fused solver chains: kernel wrappers + plain versions
-  serve/      SolverMux serving stack (scheduler, cost model, faults)
+  csrc/       the hand-written Hopper kernels (K1-K9), built at first use
+  pipelines/  fused solver chains and the DAG stages: kernel wrappers +
+              plain versions
+  serve/      SolverMux serving stack (scheduler, served DAGs, cost
+              model, faults)
   launch/     entry points (``python -m repro_torch.launch.serve_solvers``)
-  core/       FGOP stream descriptors
+  core/       FGOP stream descriptors, region dependences, criticality
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 which runs the plain PyTorch versions; with no GPU and no explicit CPU

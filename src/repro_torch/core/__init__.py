@@ -1,1 +1,2 @@
-"""FGOP stream descriptors (paper section 4) used by the registry specs."""
+"""FGOP structure used by the registry: stream descriptors (paper
+section 4), ordered region dependences and criticality planning."""

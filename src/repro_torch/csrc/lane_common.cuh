@@ -1,10 +1,12 @@
-// Shared device code of the per-lane solver kernels (K1-K4).
+// Shared device code of the per-lane kernels (K1-K9).
 //
-// Every kernel runs one CTA per lane (blockIdx.x = lane) with kThreads
-// threads; the lane's working matrix and right-hand sides live in dynamic
-// shared memory in float32.  Threads stride over the elements of each
-// ordered step and __syncthreads() separates the steps, which is the
+// The solver kernels run one CTA per lane (blockIdx.x = lane) with
+// kThreads threads; the lane's working matrix and right-hand sides live in
+// dynamic shared memory in float32.  Threads stride over the elements of
+// each ordered step and __syncthreads() separates the steps, which is the
 // ordered dependence chain the TPU kernels express as a fori_loop carry.
+// The FFT (K7, rows per CTA) and the Jacobi SVD (K8, a warp per lane) shape
+// their blocks themselves and take only warp_sum and allow_smem from here.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,5 +1,6 @@
 """The kernel registry — the single enumeration point for tests,
-benchmarks and serving — for the served solver pipelines.
+benchmarks and serving — for the served solver pipelines, the served
+pipeline DAGs and the kernels they run.
 
 Every pipeline registers a ``KernelSpec`` binding together its kernel
 entry point (``repro_torch.pipelines.*_fused``: the hand-written CUDA
@@ -14,8 +15,12 @@ iterate ``specs()`` instead of hand-importing each pipeline:
         args = spec.make_case(rng, n)
         assert close(spec.kernel(*args), spec.run_oracle(*args))
 
-Names, sizes, tolerances, variant order and ``when`` predicates are the
-reference's (``repro/kernels/__init__.py``), so dispatch and pricing
+Pipeline DAGs (:class:`DagSpec`, :func:`register_dag`) chain registered
+pipelines as named stages; ``SolverMux.submit_dag`` serves them.
+
+Names, sizes, tolerances, variant order, ``when`` predicates, flops
+models and DAG declarations are the reference's
+(``repro/kernels/__init__.py``), so dispatch, pricing and criticality
 agree with it on every shape.  The ``tiled`` and ``blocked`` large-n
 variants keep their rows and predicates but are not ported yet: their
 entry point is :func:`later_slice`, which raises, and the serving stack
@@ -35,8 +40,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["KernelSpec", "Variant", "Coalescer", "register", "get",
-           "names", "specs", "later_slice"]
+__all__ = ["KernelSpec", "Variant", "Coalescer", "StageSpec", "DagSpec",
+           "register", "register_dag", "get", "names", "specs", "get_dag",
+           "dag_names", "dag_specs", "later_slice"]
 
 
 def later_slice(*args, **kwargs):
@@ -134,6 +140,13 @@ class KernelSpec:
     ``coalesce`` is the spec's optional :class:`Coalescer` — the
     declared cross-shape embedding that lets the serving mux ragged-
     batch a small job into a larger bucket's free lanes under overload.
+
+    ``run_kernel`` is an optional conformance adapter around ``kernel``
+    whose output compares with ``run_oracle`` (``None``: ``kernel``
+    itself) — the SVD specs compare the sorted spectrum and the
+    reconstruction, since their factors are sign/order ambiguous.
+    ``kind`` is ``"pipeline"`` for a servable spec, ``"kernel"`` for a
+    kernel the serving stack reaches only through a pipeline.
     """
 
     name: str
@@ -148,12 +161,23 @@ class KernelSpec:
     variants: tuple[Variant, ...] = ()
     flops: Callable | None = None
     coalesce: Coalescer | None = None
+    run_kernel: Callable | None = None
+    serve_oracle: Callable | None = None
+    """Optional serving-side ground truth overriding ``run_oracle`` for
+    per-job spot checks (:meth:`run_oracle_lane`): needed when the
+    served output is not what the conformance faces compare — e.g.
+    ``svd_factor`` serves sign/order-ambiguous packed factors, so its
+    serving oracle is a standalone run of the kernel itself
+    (bit-identity) while ``run_kernel``/``run_oracle`` check the sorted
+    spectrum + reconstruction."""
 
     @property
     def base(self) -> Variant:
         """The spec's own entry point as the fallback Variant."""
+        oracle = self.serve_oracle if self.serve_oracle is not None \
+            else self.run_oracle
         return Variant(name="base", fn=self.kernel, when=lambda s, d: True,
-                       oracle=self.run_oracle, filler=self.filler,
+                       oracle=oracle, filler=self.filler,
                        make_case=self.make_case, sizes=self.sizes,
                        flops=self.flops)
 
@@ -189,7 +213,140 @@ class KernelSpec:
         return oracle(*batched)[0].numpy()
 
 
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    """One named stage of a pipeline DAG.
+
+    ``pipeline`` names the registered ``kind="pipeline"`` KernelSpec that
+    serves the stage — the stage's entry point, variants, filler,
+    coalescer, and cost model are all the pipeline's own, so a DAG stage
+    rides every serving mechanism (padding, coalescing, fault
+    supervision) a plain job does.  ``bind(args, outs)`` maps the DAG
+    job's per-lane input args plus the completed producer outputs (by
+    stage name) to this stage's per-lane args — the declared dataflow.
+    ``consumes`` lists producer stage names; the DagSpec's ``deps``
+    (:class:`repro_torch.core.dependence.OrderedDep`) must carry exactly
+    these edges.  ``stream`` maps the DAG's problem size to the
+    StreamDescriptor of the stage's output handoff buffer (how results
+    travel between launches when the stage is NOT fused with its
+    consumer).  ``flops(shapes)`` — per-lane DAG input arg shapes — is
+    the stage's model-FLOP weight for criticality planning, and
+    ``transcendental`` marks stages dominated by special functions
+    rather than bulk multiply-adds (excluded from threshold criticality
+    by :func:`repro_torch.core.criticality.plan_split`).  ``oracle``
+    optionally overrides the stage pipeline's ``run_oracle_lane`` for
+    per-stage ground truth (stages with ambiguous outputs, e.g. SVD
+    factors, leave it None and are checked by bit-identity against a
+    standalone run instead)."""
+
+    name: str
+    pipeline: str
+    bind: Callable
+    consumes: tuple[str, ...] = ()
+    stream: Callable | None = None
+    oracle: Callable | None = None
+    flops: Callable | None = None
+    transcendental: bool = False
+
+    def model_flops(self, shapes) -> float:
+        if self.flops is None:
+            return 1.0
+        return float(self.flops(tuple(tuple(s) for s in shapes)))
+
+
+@dataclasses.dataclass(frozen=True)
+class DagSpec:
+    """A served pipeline DAG: named stages + ordered producer->consumer
+    edges, the registry's extension of KernelSpec from one entry point
+    to a stage graph (``SolverMux.submit_dag`` executes it).
+
+    ``stages`` is the stage-independent decomposition (one launch per
+    stage, handoff through stage output buffers); ``chained`` is the
+    optional lane-resident alternative where adjacent stages are fused
+    into one kernel (shared-memory handoff), reducing DAG depth.  Both
+    lists are topologically ordered by declaration; a stage may only
+    consume earlier stages.  ``deps`` declares the staged edges as
+    :class:`OrderedDep` s and must match the stages' ``consumes``
+    exactly (chained edges are derived from ``chained[i].consumes``).
+    The DAG's terminal output is the LAST stage's output.
+
+    ``make_case(rng, n)`` builds one PER-LANE (unbatched) set of DAG
+    input args — the ``submit_dag`` calling convention — and ``oracle``
+    maps those args to the terminal output (ground truth for end-to-end
+    checks, compared at ``rtol``).
+
+    ``crit_threshold`` is the criticality knob: :meth:`criticality`
+    weighs every stage's ``flops`` model and hands the shares to
+    :func:`repro_torch.core.criticality.plan_split` at this threshold —
+    stages planned critical are admitted ahead of slack stages at equal
+    deadline by the mux."""
+
+    name: str
+    stages: tuple[StageSpec, ...]
+    deps: tuple
+    make_case: Callable
+    oracle: Callable
+    chained: tuple[StageSpec, ...] = ()
+    crit_threshold: float = 0.25
+    rtol: float = 1e-4
+
+    def __post_init__(self):
+        for stages, label in ((self.stages, "stages"),
+                              (self.chained, "chained")):
+            seen: set[str] = set()
+            for s in stages:
+                if s.name in seen:
+                    raise ValueError(
+                        f"dag {self.name!r}: duplicate {label} stage "
+                        f"{s.name!r}")
+                missing = [c for c in s.consumes if c not in seen]
+                if missing:
+                    raise ValueError(
+                        f"dag {self.name!r}: stage {s.name!r} consumes "
+                        f"{missing} before they are produced")
+                seen.add(s.name)
+        if not self.stages:
+            raise ValueError(f"dag {self.name!r}: no stages")
+        declared = {(d.producer, d.consumer) for d in self.deps}
+        consumed = {(c, s.name) for s in self.stages for c in s.consumes}
+        if declared != consumed:
+            raise ValueError(
+                f"dag {self.name!r}: OrderedDep edges {sorted(declared)} "
+                f"do not match stage consumes {sorted(consumed)}")
+
+    def stage_list(self, chained: bool = False) -> tuple[StageSpec, ...]:
+        if chained:
+            if not self.chained:
+                raise ValueError(
+                    f"dag {self.name!r} declares no chained stage list")
+            return self.chained
+        return self.stages
+
+    def criticality(self, shapes, chained: bool = False):
+        """(critical, slack) stage-name lists from the per-stage model-
+        FLOP shares via ``plan_split`` at ``crit_threshold``."""
+        from repro_torch.core.criticality import RegionCost, plan_split
+        costs = [RegionCost(s.name, max(s.model_flops(shapes), 1.0),
+                            has_transcendental=s.transcendental)
+                 for s in self.stage_list(chained)]
+        return plan_split(costs, threshold=self.crit_threshold)
+
+    def region_graph(self, shapes, chained: bool = False):
+        """The DAG as a validated :class:`RegionGraph`, critical flags
+        planned from the model-FLOP shares at these input shapes."""
+        from repro_torch.core.dependence import (OrderedDep, Region,
+                                                 RegionGraph)
+        stages = self.stage_list(chained)
+        crit, _ = self.criticality(shapes, chained)
+        regions = [Region(s.name, fn=None, critical=s.name in crit)
+                   for s in stages]
+        deps = tuple(self.deps) if not chained else tuple(
+            OrderedDep(c, s.name) for s in stages for c in s.consumes)
+        return RegionGraph(regions=regions, deps=list(deps))
+
+
 _REGISTRY: dict[str, KernelSpec] = {}
+_DAGS: dict[str, DagSpec] = {}
 _BUILT = False
 _LOCK = threading.Lock()
 
@@ -198,6 +355,19 @@ def register(spec: KernelSpec) -> KernelSpec:
     if spec.name in _REGISTRY:
         raise ValueError(f"duplicate kernel registration: {spec.name!r}")
     _REGISTRY[spec.name] = spec
+    return spec
+
+
+def register_dag(spec: DagSpec) -> DagSpec:
+    if spec.name in _DAGS:
+        raise ValueError(f"duplicate dag registration: {spec.name!r}")
+    for s in spec.stages + spec.chained:
+        pipe = _REGISTRY.get(s.pipeline)
+        if pipe is None or pipe.kind != "pipeline":
+            raise ValueError(
+                f"dag {spec.name!r}: stage {s.name!r} references "
+                f"{s.pipeline!r}, which is not a registered pipeline")
+    _DAGS[spec.name] = spec
     return spec
 
 
@@ -213,6 +383,7 @@ def _build() -> None:
             _register_all()
         except BaseException:
             _REGISTRY.clear()
+            _DAGS.clear()
             raise
         _BUILT = True
 
@@ -223,12 +394,46 @@ def _tensor(x: np.ndarray) -> torch.Tensor:
 
 def _register_all() -> None:
     from repro_torch import pipelines as pp
-    from repro_torch.core.streams import inductive
+    from repro_torch.core.streams import inductive, rect
     from repro_torch.kernels import ref
     from repro_torch.kernels.common import sample_spd as _spd
+    from repro_torch.kernels.fft import fft_fused
+    from repro_torch.kernels.svd import spectrum_recon, svd_fused
 
     tri_ri = lambda n: inductive(outer_trip=n, inner_base=n,
                                  inner_stretch=-1)
+
+    # ---------------- kernels the served DAGs run ----------------
+    def _svd_adapter(a):
+        """Reconstruction-based conformance adapter: check the sorted
+        spectrum AND that U diag(S) V^T rebuilds A — one-sided Jacobi
+        guarantees A V = U S, so reconstruction is exact up to float32
+        rounding and catches U/V corruption that a singular-values-only
+        check cannot."""
+        return spectrum_recon(*svd_fused(a, sweeps=14))
+
+    # dtype-relative tolerance: one-sided Jacobi converges to working
+    # precision, so the reconstruction check budget is a small multiple
+    # of sqrt(eps(float32)) (~3.5e-4)
+    svd_rtol = float(4.0 * np.sqrt(np.finfo(np.float32).eps))
+
+    register(KernelSpec(
+        name="svd", kernel=svd_fused, run_kernel=_svd_adapter,
+        run_oracle=lambda a: (ref.svd_vals(a), a),
+        make_case=lambda rng, n: (_tensor(
+            rng.standard_normal((2, n + 4, n)).astype(np.float32)),),
+        stream=lambda n: inductive(outer_trip=n, inner_base=n - 1,
+                                   inner_stretch=-1),
+        sizes=(8, 12, 16), rtol=svd_rtol, kind="kernel"))
+
+    register(KernelSpec(
+        name="fft", kernel=fft_fused,
+        run_oracle=lambda xr, xi: ref.fft(xr, xi),
+        make_case=lambda rng, n: (
+            _tensor(rng.standard_normal((2, n)).astype(np.float32)),
+            _tensor(rng.standard_normal((2, n)).astype(np.float32))),
+        stream=lambda n: rect(int(np.log2(n)), n // 2),
+        sizes=(64, 128, 256, 1024), rtol=1e-3, kind="kernel"))
 
     def _identity_system_filler(shapes, dtypes):
         """Benign padding lane for (matrix, rhs) solver pipelines: an
@@ -429,6 +634,255 @@ def _register_all() -> None:
                     when=_tiled_when, make_case=_tall_tiled_case,
                     sizes=(512, 1024), flops=_mmse_flops))))
 
+    # ---------------- DAG stage pipelines (PUSCH + SVD-solve) ----------
+    from repro_torch.core.dependence import OrderedDep
+
+    # Per-lane DAG geometry: A = n + 4 antennas, NF-point OFDM FFT, the
+    # first P = 2n frequency bins carry pilots and the next K_SYMS carry
+    # the data symbols the equalizer recovers.
+    NFFT = 64
+    K_SYMS = 2
+
+    def _lane(x):
+        """One numpy lane through a batched torch oracle on the CPU."""
+        return _tensor(np.asarray(x))[None]
+
+    def _pusch_fft_case(rng, n):
+        a = n + 4
+        mk = lambda: _tensor(rng.standard_normal((2, a, NFFT))
+                             .astype(np.float32))
+        return mk(), mk()
+
+    def _pusch_fft_filler(shapes, dtypes):
+        return tuple(np.zeros(s, dtype=d) for s, d in zip(shapes, dtypes))
+
+    def _pusch_fft_flops(shapes):
+        a, nf = shapes[0]
+        return 5.0 * a * nf * np.log2(nf)
+
+    register(KernelSpec(
+        name="pusch_fft", kernel=pp.pusch_fft_fused,
+        run_oracle=lambda xr, xi: ref.pusch_fft(xr, xi),
+        make_case=_pusch_fft_case,
+        stream=lambda n: rect(2, n + 4, NFFT),
+        sizes=(8, 12), rtol=1e-3,
+        filler=_pusch_fft_filler, flops=_pusch_fft_flops))
+
+    def _chanest_case(rng, n):
+        p, a = 2 * n, n + 4
+        xp = _tensor(rng.standard_normal((2, n, p)).astype(np.float32))
+        yp = _tensor(rng.standard_normal((2, a, p)).astype(np.float32))
+        return xp, yp
+
+    def _chanest_filler(shapes, dtypes):
+        """Benign pilot lane: orthonormal pilot rows, zero observation
+        -> Gram = I + ridge, H = 0 exactly."""
+        (n, p), yp_shape = shapes
+        return (np.eye(n, p, dtype=dtypes[0]),
+                np.zeros(yp_shape, dtype=dtypes[1]))
+
+    def _chanest_flops(shapes):
+        """Pilot Gram 2 p n^2 + rhs GEMM 2 n p a + n^3/3 factor +
+        2 n^2 a substitutions (a rhs columns = antennas)."""
+        (n, p), (a, _) = shapes
+        return (2.0 * p * n * n + 2.0 * n * p * a + n ** 3 / 3.0
+                + 2.0 * n * n * a)
+
+    register(KernelSpec(
+        name="pusch_chanest", kernel=pp.channel_estimate_fused,
+        run_oracle=lambda xp, yp: ref.channel_estimate(xp, yp),
+        make_case=_chanest_case, stream=tri_ri, sizes=(8, 12),
+        filler=_chanest_filler, flops=_chanest_flops))
+
+    def _pusch_chain_case(rng, n):
+        xp, yp = _chanest_case(rng, n)
+        y = _tensor(rng.standard_normal((2, n + 4, K_SYMS))
+                    .astype(np.float32))
+        return xp, yp, y
+
+    def _pusch_chain_filler(shapes, dtypes):
+        (n, p), yp_shape, y_shape = shapes
+        return (np.eye(n, p, dtype=dtypes[0]),
+                np.zeros(yp_shape, dtype=dtypes[1]),
+                np.zeros(y_shape, dtype=dtypes[2]))
+
+    def _pusch_chain_flops(shapes):
+        (n, p), (a, _), (_, k) = shapes
+        est = _chanest_flops(shapes[:2])
+        eq = (2.0 * a * n * n + 2.0 * a * n * k + n ** 3 / 3.0
+              + 2.0 * n * n * k)
+        return est + eq
+
+    register(KernelSpec(
+        name="pusch_chain", kernel=pp.pusch_chain_fused,
+        run_oracle=lambda xp, yp, y: ref.pusch_chain(xp, yp, y),
+        make_case=_pusch_chain_case, stream=tri_ri, sizes=(8, 12),
+        filler=_pusch_chain_filler, flops=_pusch_chain_flops))
+
+    def _svd_factor_check(a):
+        """Conformance adapter: packed factors are sign/order ambiguous,
+        so check the sorted spectrum + the reconstruction (same contract
+        as the ``svd`` kernel spec)."""
+        return spectrum_recon(*pp.unpack_factors(pp.svd_factor_fused(a)))
+
+    def _svd_factor_filler(shapes, dtypes):
+        (m, n), = shapes
+        return (np.eye(m, n, dtype=dtypes[0]),)
+
+    def _svd_factor_flops(shapes):
+        """One-sided Jacobi: 14 sweeps x n(n-1)/2 pairs x (6m dot work
+        + 12(m+n) rotation work)."""
+        m, n = shapes[0]
+        return 14.0 * n * (n - 1) / 2.0 * (6.0 * m + 12.0 * (m + n))
+
+    register(KernelSpec(
+        name="svd_factor", kernel=pp.svd_factor_fused,
+        run_kernel=_svd_factor_check,
+        run_oracle=lambda a: (ref.svd_vals(a), a),
+        make_case=lambda rng, n: (_tensor(
+            rng.standard_normal((2, n + 4, n)).astype(np.float32)),),
+        stream=lambda n: inductive(outer_trip=n, inner_base=n - 1,
+                                   inner_stretch=-1),
+        sizes=(8, 12), rtol=svd_rtol,
+        filler=_svd_factor_filler, flops=_svd_factor_flops,
+        serve_oracle=lambda a: pp.svd_factor_fused(a)))
+
+    def _svd_apply_case(rng, n):
+        m = n + 4
+        f = rng.standard_normal((2, m + n + 1, n)).astype(np.float32)
+        f[:, m + n] = np.abs(f[:, m + n]) + 0.1      # s row: positive
+        b = rng.standard_normal((2, m, K_SYMS)).astype(np.float32)
+        return _tensor(f), _tensor(b)
+
+    def _svd_apply_filler(shapes, dtypes):
+        """Benign packed-identity factors + zero rhs -> x = 0."""
+        (mn1, n), b_shape = shapes
+        m = mn1 - n - 1
+        f = np.zeros((mn1, n), dtype=dtypes[0])
+        f[:m] = np.eye(m, n, dtype=dtypes[0])
+        f[m:m + n] = np.eye(n, dtype=dtypes[0])
+        f[m + n] = 1.0
+        return f, np.zeros(b_shape, dtype=dtypes[1])
+
+    def _svd_apply_flops(shapes):
+        (mn1, n), (m, k) = shapes
+        return 2.0 * m * n * k + 2.0 * n * n * k + 3.0 * n * k
+
+    register(KernelSpec(
+        name="svd_apply", kernel=pp.svd_apply_fused,
+        run_oracle=lambda f, b: ref.svd_apply(f, b),
+        make_case=_svd_apply_case,
+        stream=lambda n: rect(n, K_SYMS), sizes=(8, 12),
+        filler=_svd_apply_filler, flops=_svd_apply_flops))
+
+    # ---------------- the served DAGs ----------------
+    def _pusch_dag_case(rng, n):
+        a, p = n + 4, 2 * n
+        return (rng.standard_normal((a, NFFT)).astype(np.float32),
+                rng.standard_normal((a, NFFT)).astype(np.float32),
+                rng.standard_normal((n, p)).astype(np.float32))
+
+    def _pusch_dag_oracle(tdr, tdi, xp):
+        f = ref.pusch_fft(_lane(tdr), _lane(tdi))[0]
+        p = xp.shape[1]
+        h = ref.channel_estimate(_lane(xp), f[0][:, :p][None])
+        return ref.mmse_equalize(h, f[0][:, p:p + K_SYMS][None],
+                                 sigma2=0.1)[0].numpy()
+
+    def _bind_fft(args, outs):
+        return args[0], args[1]
+
+    def _bind_chanest(args, outs):
+        xp = args[2]
+        return xp, outs["fft"][0][:, :xp.shape[1]]
+
+    def _bind_equalize(args, outs):
+        p = args[2].shape[1]
+        return outs["chanest"], outs["fft"][0][:, p:p + K_SYMS]
+
+    def _bind_chain(args, outs):
+        xp = args[2]
+        p = xp.shape[1]
+        f0 = outs["fft"][0]
+        return xp, f0[:, :p], f0[:, p:p + K_SYMS]
+
+    def _stage_flops_chanest(shapes):
+        (a, _), _, (n, p) = shapes
+        return _chanest_flops(((n, p), (a, p)))
+
+    def _stage_flops_equalize(shapes):
+        (a, _), _, (n, p) = shapes
+        return (2.0 * a * n * n + 2.0 * a * n * K_SYMS + n ** 3 / 3.0
+                + 2.0 * n * n * K_SYMS)
+
+    _fft_stage = StageSpec(
+        name="fft", pipeline="pusch_fft", bind=_bind_fft,
+        stream=lambda n: rect(2, n + 4, NFFT),
+        oracle=lambda tdr, tdi: ref.pusch_fft(_lane(tdr),
+                                              _lane(tdi))[0].numpy(),
+        flops=lambda shapes: _pusch_fft_flops(shapes[:2]),
+        transcendental=True)       # twiddle sin/cos chains, not bulk FMA
+
+    register_dag(DagSpec(
+        name="pusch_receive",
+        stages=(
+            _fft_stage,
+            StageSpec(name="chanest", pipeline="pusch_chanest",
+                      bind=_bind_chanest, consumes=("fft",),
+                      stream=tri_ri, flops=_stage_flops_chanest),
+            StageSpec(name="equalize", pipeline="mmse_equalize",
+                      bind=_bind_equalize, consumes=("fft", "chanest"),
+                      stream=tri_ri, flops=_stage_flops_equalize),
+        ),
+        deps=(OrderedDep("fft", "chanest"),
+              OrderedDep("fft", "equalize"),
+              OrderedDep("chanest", "equalize")),
+        chained=(
+            _fft_stage,
+            StageSpec(name="chain", pipeline="pusch_chain",
+                      bind=_bind_chain, consumes=("fft",),
+                      stream=tri_ri,
+                      flops=lambda shapes: (
+                          _stage_flops_chanest(shapes)
+                          + _stage_flops_equalize(shapes))),
+        ),
+        make_case=_pusch_dag_case, oracle=_pusch_dag_oracle,
+        # knob: 0.15 keeps the mid-chain channel-estimate stage (share
+        # ~0.2 of the DAG's model FLOPs) on the critical path while the
+        # transcendental FFT front-end and the small equalize tail stay
+        # slack — the admission ordering the golden trace pins.
+        crit_threshold=0.15, rtol=2e-3))
+
+    def _svd_dag_case(rng, n):
+        return (rng.standard_normal((n + 4, n)).astype(np.float32),
+                rng.standard_normal((n + 4, K_SYMS)).astype(np.float32))
+
+    def _svd_dag_oracle(a, b):
+        return ref.ridge_solve(_lane(a), _lane(b))[0].numpy()
+
+    register_dag(DagSpec(
+        name="svd_solve",
+        stages=(
+            StageSpec(name="factor", pipeline="svd_factor",
+                      bind=lambda args, outs: (args[0],),
+                      stream=lambda n: inductive(outer_trip=n,
+                                                 inner_base=n - 1,
+                                                 inner_stretch=-1),
+                      flops=lambda shapes: _svd_factor_flops(
+                          shapes[:1])),
+            StageSpec(name="apply", pipeline="svd_apply",
+                      bind=lambda args, outs: (outs["factor"], args[1]),
+                      consumes=("factor",),
+                      stream=lambda n: rect(n, K_SYMS),
+                      oracle=lambda f, b: ref.svd_apply(
+                          _lane(f), _lane(b))[0].numpy(),
+                      flops=lambda shapes: _svd_apply_flops(
+                          (((shapes[0][0] + shapes[0][1] + 1),
+                            shapes[0][1]), shapes[1]))),
+        ),
+        deps=(OrderedDep("factor", "apply"),),
+        make_case=_svd_dag_case, oracle=_svd_dag_oracle, rtol=2e-3))
+
 
 def get(name: str) -> KernelSpec:
     _build()
@@ -449,3 +903,22 @@ def specs(kind: str | None = None) -> list[KernelSpec]:
     _build()
     return [s for s in _REGISTRY.values()
             if kind is None or s.kind == kind]
+
+
+def get_dag(name: str) -> DagSpec:
+    _build()
+    try:
+        return _DAGS[name]
+    except KeyError:
+        raise KeyError(f"unknown dag {name!r}; registered: "
+                       f"{sorted(_DAGS)}") from None
+
+
+def dag_names() -> list[str]:
+    _build()
+    return sorted(_DAGS)
+
+
+def dag_specs() -> list[DagSpec]:
+    _build()
+    return [_DAGS[n] for n in sorted(_DAGS)]

@@ -1,10 +1,11 @@
-"""Plain-library oracles for the served solver pipelines — the ground
-truth for allclose tests and the serving stack's per-job spot check.
+"""Plain-library oracles for the served pipelines and the kernels they
+run — the ground truth for allclose tests and the serving stack's
+per-job spot check.
 
-These are deliberately unfused library calls (``torch.linalg``), the
-counterparts of the reference's ``repro/kernels/ref.py`` oracles.  This
-module is the only place in the package that calls ``torch.linalg``; no
-served path calls it.
+These are deliberately unfused library calls (``torch.linalg``, ``torch.fft``),
+the counterparts of the reference's ``repro/kernels/ref.py`` oracles.
+This module is the only place in the package that calls them; no served
+path does.
 """
 from __future__ import annotations
 
@@ -54,3 +55,64 @@ def mmse_equalize_split(hr: torch.Tensor, hi: torch.Tensor,
     rhs = torch.einsum("bmn,bmk->bnk", h.conj(), y)
     x = torch.linalg.solve(g, rhs)
     return torch.cat([x.real, x.imag], dim=-2).to(hr.dtype)
+
+
+def svd_vals(a: torch.Tensor) -> torch.Tensor:
+    """Singular values, descending. a: (B, M, N)."""
+    return torch.linalg.svdvals(a)
+
+
+def channel_estimate(xp: torch.Tensor, yp: torch.Tensor, *,
+                     ridge: float = 1e-3) -> torch.Tensor:
+    """Regularized LS channel estimate from pilots: solve
+    (Xp Xp^T + ridge I) Z = Xp Yp^T, H = Z^T.
+    xp: (B,N,P) known pilots, yp: (B,M,P) observations -> (B,M,N)."""
+    n = xp.shape[-2]
+    g = torch.einsum("bnp,bmp->bnm", xp, xp) \
+        + ridge * torch.eye(n, dtype=xp.dtype, device=xp.device)
+    rhs = torch.einsum("bnp,bmp->bnm", xp, yp)
+    return torch.linalg.solve(g, rhs).transpose(-1, -2)
+
+
+def pusch_chain(xp: torch.Tensor, yp: torch.Tensor, y: torch.Tensor, *,
+                ridge: float = 1e-3, sigma2: float = 0.1) -> torch.Tensor:
+    """Channel-estimate -> MMSE equalize, the unfused two-stage path.
+    xp: (B,N,P), yp: (B,M,P), y: (B,M,K) -> (B,N,K)."""
+    return mmse_equalize(channel_estimate(xp, yp, ridge=ridge), y,
+                         sigma2=sigma2)
+
+
+def svd_apply(f: torch.Tensor, b: torch.Tensor, *,
+              lam: float = 1e-3) -> torch.Tensor:
+    """Pseudo-inverse apply from a packed (B, M+N+1, N) factor buffer
+    [U; V; s]: x = V diag(s / (s^2 + lam)) U^T b.  b: (B,M,K)."""
+    n = f.shape[-1]
+    m = f.shape[-2] - n - 1
+    u, v, s = f[:, :m], f[:, m:m + n], f[:, m + n]
+    w = torch.einsum("bmn,bmk->bnk", u, b)
+    w = (s / (s * s + lam))[:, :, None] * w
+    return torch.einsum("bnj,bjk->bnk", v, w)
+
+
+def ridge_solve(a: torch.Tensor, b: torch.Tensor, *,
+                lam: float = 1e-3) -> torch.Tensor:
+    """Closed-form ridge regression x = (A^T A + lam I)^{-1} A^T b — the
+    factor-free ground truth for the svd_factor -> svd_apply DAG (the
+    composition is invariant to SVD sign/order ambiguity)."""
+    n = a.shape[-1]
+    g = torch.einsum("bmi,bmj->bij", a, a) \
+        + lam * torch.eye(n, dtype=a.dtype, device=a.device)
+    return torch.linalg.solve(g, torch.einsum("bmn,bmk->bnk", a, b))
+
+
+def fft(x_re: torch.Tensor, x_im: torch.Tensor):
+    """Batched complex FFT. (B, N) each -> (re, im)."""
+    z = torch.fft.fft(torch.complex(x_re, x_im))
+    return z.real.to(x_re.dtype), z.imag.to(x_im.dtype)
+
+
+def pusch_fft(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """OFDM demod stage oracle: per-antenna FFT over the last axis,
+    packed into stacked planes.  (B, A, NF) re/im -> (B, 2, A, NF)."""
+    z = torch.fft.fft(torch.complex(xr, xi))
+    return torch.stack([z.real.to(xr.dtype), z.imag.to(xi.dtype)], dim=1)

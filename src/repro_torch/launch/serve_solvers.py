@@ -23,7 +23,15 @@ Every lane group runs as one launch of a hand-written CUDA kernel on
 ``--device cuda`` (the default); ``--device cpu`` runs the kernels'
 plain PyTorch versions instead.
 
-Two helpers here are shared infrastructure rather than CLI plumbing:
+``--pusch`` serves the canonical PUSCH-receiver DAG trace instead (one
+hard ``pusch_receive`` DAG per tick — FFT -> channel estimate -> MMSE
+equalize — plus a best-effort ``svd_solve`` DAG every other tick), once
+stage by stage and once with the channel-estimate -> equalize tail
+chained in one kernel, and prints the end-to-end DAG observables:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_solvers --pusch
+
+Helpers here are shared infrastructure rather than CLI plumbing:
 
 * :func:`run_overload` — the deterministic synthetic overload scenario
   (offered load >= 2x lane capacity, mixed priorities, virtual clock)
@@ -32,6 +40,9 @@ Two helpers here are shared infrastructure rather than CLI plumbing:
   trace (each entry a seed-keyed job, never raw arrays) through a mux on
   a virtual clock, returning the mux so callers can assert on its
   ``events`` decision log (the golden trace-replay regression test).
+* :func:`pusch_trace` / :func:`replay_pusch` / :func:`run_pusch` — the
+  same for served DAGs (the golden PUSCH replay and the staged vs
+  chained comparison).
 """
 from __future__ import annotations
 
@@ -250,16 +261,162 @@ def run_overload(policy: bool, *, ticks: int = 8, lanes: int = 4,
     return summary
 
 
+# ---------------- served PUSCH DAG (golden tests) ----------------
+
+def dag_job_args(dag: str, n: int, seed: int) -> tuple:
+    """Deterministic per-DAG-job problem arrays, keyed by seed — the
+    form committed DAG traces store jobs in (never raw arrays)."""
+    return K.get_dag(dag).make_case(np.random.default_rng(seed), n)
+
+
+def pusch_trace(ticks: int, seed: int = 0, *, chained: bool = False,
+                n: int = 8) -> list[dict]:
+    """The canonical served-DAG workload: one hard ``pusch_receive``
+    DAG per tick plus one best-effort ``svd_solve`` DAG every other
+    tick (the generality traffic), all at antenna size ``n``.  The PUSCH
+    deadlines are *staggered to the same absolute tick* in pairs (tick t
+    gets ``8 - t % 2`` ticks), so consecutive DAGs compete at EQUAL
+    deadline while sitting at different stages — the window where
+    criticality-first admission is observable: the later DAG's critical
+    channel-estimate stage must flush ahead of the earlier DAG's slack
+    equalize stage (plain FIFO/seq order would invert that), which the
+    golden event stream pins."""
+    trace, seq = [], 0
+    for t in range(ticks):
+        trace.append(dict(tick=t, dag="pusch_receive", n=n,
+                          priority="hard",
+                          deadline_ticks=8.0 - t % 2,
+                          chained=chained,
+                          seed=seed * 100003 + seq)); seq += 1
+        if t % 2 == 0:
+            trace.append(dict(tick=t, dag="svd_solve", n=n,
+                              priority="best_effort",
+                              deadline_ticks=12.0, chained=False,
+                              seed=seed * 100003 + seq)); seq += 1
+    return trace
+
+
+def replay_pusch(trace: list[dict], *, lanes: int = 4, tick: float = 1.0,
+                 drain_ticks: int = 6, injector=None, device=None):
+    """Replay a committed DAG trace on a virtual clock: submit each
+    tick's DAGs, ``poll`` once per tick (each poll serves the ready
+    stage frontier and advances the DAGs), keep polling ``drain_ticks``
+    empty ticks, then ``run()``.  Returns ``(mux, dag_jobs)`` — the
+    mux's ``events`` list is the stage-scheduling decision sequence the
+    golden file pins."""
+    clock = ManualClock()
+    mux = SolverMux(lanes=lanes, max_wait=0.0, clock=clock,
+                    policy=OverloadPolicy(budget=None,
+                                          cost_model=CostModel()),
+                    injector=injector, device=device)
+    by_tick: dict[int, list[dict]] = {}
+    for entry in trace:
+        by_tick.setdefault(int(entry["tick"]), []).append(entry)
+    last = max(by_tick) if by_tick else -1
+    dags = []
+    for t in range(last + 1 + drain_ticks):
+        for e in by_tick.get(t, ()):
+            deadline = e.get("deadline_ticks")
+            dags.append(mux.submit_dag(
+                e["dag"], *dag_job_args(e["dag"], e["n"], e["seed"]),
+                deadline=(None if deadline is None
+                          else clock() + deadline * tick),
+                priority=e.get("priority", "best_effort"),
+                chained=e.get("chained", False)))
+        mux.poll()
+        clock.advance(tick)
+    mux.run()
+    return mux, dags
+
+
+def dag_hard_lost(dags) -> int:
+    """Hard DAGs (or their stages) left unaccounted: a hard DAG is LOST
+    iff it reached no terminal state, or any submitted stage job is
+    neither terminal nor explicitly cancelled — the acceptance gate is
+    zero (a mid-DAG fault must cascade cleanly, never orphan)."""
+    lost = 0
+    for d in dags:
+        if d.priority != "hard":
+            continue
+        if d.state not in ("done", "failed", "dropped"):
+            lost += 1
+            continue
+        for stage in d.spec.stage_list(chained=d.chained):
+            sj = d.stages.get(stage.name)
+            if sj == "cancelled":
+                continue
+            if sj is None or sj.state not in ("done", "failed",
+                                              "dropped"):
+                lost += 1
+                break
+    return lost
+
+
+def run_pusch(chained: bool, *, ticks: int = 4, lanes: int = 4,
+              seed: int = 0, n: int = 8,
+              fault_trace: str | dict | None = None, fault_seed: int = 0,
+              device=None) -> dict:
+    """Run the canonical PUSCH DAG trace end to end — stage-independent
+    (``chained=False``: FFT -> channel-estimate -> equalize as three
+    launches with buffer handoffs) or stage-chained (``chained=True``:
+    the channel-estimate->equalize tail fused lane-resident in one
+    kernel) — and summarize the end-to-end view: e2e p50/p99 latency in
+    virtual ticks, launch counts, the worst relative error of a done
+    DAG's output against ``DagSpec.oracle`` (``max_rel_err``), and
+    (under an injected fault trace) the containment observables with
+    ``hard_lost`` required zero."""
+    import os
+
+    from repro_torch.serve import FaultInjector
+    if fault_trace is None:
+        injector = None
+    elif isinstance(fault_trace, (str, os.PathLike)):
+        injector = FaultInjector.from_json(fault_trace, seed=fault_seed)
+    else:
+        injector = FaultInjector(fault_trace, seed=fault_seed)
+    trace = pusch_trace(ticks, seed, chained=chained, n=n)
+    mux, dags = replay_pusch(trace, lanes=lanes, injector=injector,
+                             device=device)
+    snap = mux.metrics()
+    pstats = snap.dags.get("pusch_receive")
+    pusch = [d for d in dags if d.dag == "pusch_receive"]
+    rel = [float(np.max(np.abs(d.out - want))
+                 / (np.max(np.abs(want)) + 1e-12))
+           for d in dags if d.state == "done"
+           for want in (d.spec.oracle(*d.args),)]
+    return {
+        "chained": chained,
+        "faulted": injector is not None,
+        "dags": len(dags),
+        "pusch_dags": len(pusch),
+        "done": sum(1 for d in dags if d.state == "done"),
+        "failed": sum(1 for d in dags if d.state == "failed"),
+        "dropped": sum(1 for d in dags if d.state == "dropped"),
+        "hard_lost": dag_hard_lost(dags),
+        "e2e_p50": pstats.latency.p50 if pstats else math.nan,
+        "e2e_p99": pstats.latency.p99 if pstats else math.nan,
+        "launches": snap.total_launches,
+        "retries": snap.faults.retries,
+        "failed_jobs": snap.faults.failed_jobs,
+        "max_rel_err": max(rel, default=math.nan),
+        "pending": mux.pending(),
+        "events": mux.drain_events(),
+    }
+
+
 def main(argv=None) -> dict | None:
     """Serve the TTI slot mix and print its SLO report.  Returns the
     run's summary (jobs, done, hard jobs dropped, the oracle spot-check's
-    relative error, launches), or None for an empty trace."""
+    relative error, launches), or None for an empty trace.  With
+    ``--pusch``: serve the DAG trace instead and return its staged and
+    chained summaries (:func:`run_pusch`, without the event logs)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--slots", type=int, default=8,
                     help="trace length in TTI slots")
     ap.add_argument("--lanes", type=int, default=8)
     ap.add_argument("--sizes", default="8,12",
-                    help="comma-separated antenna sizes n (m = n + 4)")
+                    help="comma-separated antenna sizes n (m = n + 4); "
+                         "--pusch serves its DAGs at the first size")
     ap.add_argument("--deadline-ms", type=float, default=2.0,
                     help="per-job deadline after arrival (virtual ms)")
     ap.add_argument("--max-wait-ms", type=float, default=1.0,
@@ -295,14 +452,17 @@ def main(argv=None) -> dict | None:
     ap.add_argument("--chaos", action="store_true",
                     help="not ported yet (needs mesh sharding)")
     ap.add_argument("--pusch", action="store_true",
-                    help="not ported yet (the PUSCH/SVD DAG slice)")
+                    help="serve the canonical PUSCH-receiver DAG trace "
+                         "(staged vs stage-chained, criticality-ordered "
+                         "admission) instead of the TTI replay and print "
+                         "the end-to-end DAG observables; combine with "
+                         "--fault-trace for a mid-DAG stage fault")
+    ap.add_argument("--ticks", type=int, default=4,
+                    help="virtual ticks in the --pusch trace")
     ap.add_argument("--decode", action="store_true",
                     help="not ported yet (the LM decode slice)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.pusch:
-        ap.error("--pusch: the served PUSCH/SVD DAGs (kernels K5-K9) are "
-                 "a later slice of the port")
     if args.decode:
         ap.error("--decode: token decode (the LM side, K20-K21) is a "
                  "later slice of the port")
@@ -317,6 +477,8 @@ def main(argv=None) -> dict | None:
     if args.fault_seed is not None and args.fault_trace is None:
         ap.error("--fault-seed requires --fault-trace")
     sizes = [int(s) for s in args.sizes.split(",")]
+    if args.pusch:
+        return _main_pusch(args)
 
     rng = np.random.default_rng(args.seed)
     clock = ManualClock()
@@ -422,6 +584,34 @@ def main(argv=None) -> dict | None:
         "oracle_rel_err": err,
         "launches": snap.total_launches,
     }
+
+
+def _main_pusch(args) -> dict:
+    """``--pusch``: the DAG trace staged (with ``--fault-trace`` if
+    given) and chained; prints both summaries and returns them."""
+    n = int(args.sizes.split(",")[0])
+    staged = run_pusch(False, ticks=args.ticks, lanes=args.lanes,
+                       seed=args.seed, n=n, fault_trace=args.fault_trace,
+                       fault_seed=args.fault_seed or 0, device=args.device)
+    chained = run_pusch(True, ticks=args.ticks, lanes=args.lanes,
+                        seed=args.seed, n=n, device=args.device)
+    for s in (staged, chained):
+        mode = "chained" if s["chained"] else "staged"
+        fault = " +faults" if s["faulted"] else ""
+        print(f"pusch dag [{mode}{fault}] n={n} on {args.device}: "
+              f"dags={s['dags']} done={s['done']} failed={s['failed']} "
+              f"dropped={s['dropped']} hard_lost={s['hard_lost']}")
+        print(f"  e2e latency (ticks): p50={s['e2e_p50']:.1f} "
+              f"p99={s['e2e_p99']:.1f}  launches={s['launches']} "
+              f"retries={s['retries']}  "
+              f"oracle rel err={s['max_rel_err']:.2e}")
+        if s["hard_lost"]:
+            raise RuntimeError("hard DAGs silently lost")
+    if staged["e2e_p50"] and chained["e2e_p50"]:
+        print(f"  stage-chained speedup: "
+              f"{staged['e2e_p50'] / chained['e2e_p50']:.2f}x e2e p50")
+    return {"staged": {k: v for k, v in staged.items() if k != "events"},
+            "chained": {k: v for k, v in chained.items() if k != "events"}}
 
 
 if __name__ == "__main__":

@@ -10,6 +10,11 @@ lane, written by hand for Hopper (``src/repro_torch/csrc/``):
   mmse_equalize        K2 — H^T H + sigma^2 I, matched filter, K1's chain
   mmse_equalize_split  K3 — the same from split re/im planes
   qr_solve             K4 — Householder least squares, Q never formed
+  channel_estimate     K5 — pilot Gram + K1's chain, H = Z^T
+  pusch_chain          K6 — K5 then K2 in one lane, H never leaves it
+  pusch_fft            K7 — per-antenna FFT into stacked re/im planes
+  svd_factor           K8 — one-sided Jacobi SVD, packed [U; V; s]
+  svd_apply            K9 — V diag(s / (s^2 + lam)) U^T b
 
 Each module holds the kernel's wrapper (``*_fused``: the kernel on a
 CUDA tensor, the plain version on a CPU tensor), its plain PyTorch
@@ -22,6 +27,12 @@ from repro_torch.pipelines.mmse import (  # noqa: F401
     expand_complex_channel, mmse_equalize, mmse_equalize_fused,
     mmse_equalize_plain, mmse_equalize_split, mmse_equalize_split_fused,
     mmse_equalize_split_plain)
+from repro_torch.pipelines.pusch import (  # noqa: F401
+    channel_estimate, channel_estimate_fused, channel_estimate_plain,
+    pusch_chain, pusch_chain_fused, pusch_chain_plain, pusch_fft,
+    pusch_fft_fused, pusch_fft_plain, svd_apply, svd_apply_fused,
+    svd_apply_plain, svd_factor, svd_factor_fused, svd_factor_plain,
+    unpack_factors)
 from repro_torch.pipelines.qr_solve import (  # noqa: F401
     qr_solve, qr_solve_fused, qr_solve_plain)
 
@@ -31,4 +42,9 @@ __all__ = [
     "mmse_equalize_split", "mmse_equalize_split_fused",
     "mmse_equalize_split_plain", "expand_complex_channel",
     "qr_solve", "qr_solve_fused", "qr_solve_plain",
+    "channel_estimate", "channel_estimate_fused", "channel_estimate_plain",
+    "pusch_chain", "pusch_chain_fused", "pusch_chain_plain",
+    "pusch_fft", "pusch_fft_fused", "pusch_fft_plain",
+    "svd_factor", "svd_factor_fused", "svd_factor_plain",
+    "svd_apply", "svd_apply_fused", "svd_apply_plain", "unpack_factors",
 ]

@@ -114,9 +114,39 @@ wall blows past the cost model's prediction.  All of it is observable:
 :class:`repro_torch.serve.faults.FaultInjector`
 (``REPRO_SERVE_FAULT_TRACE`` or the ``injector`` constructor arg).
 
+DAG jobs (served pipelines)
+---------------------------
+
+``submit_dag(name, *args)`` serves a registered
+:class:`repro_torch.kernels.DagSpec` — e.g. ``pusch_receive``'s FFT ->
+channel-estimate -> MMSE-equalize chain — as a set of stage jobs the
+mux advances through the declared producer->consumer edges: root stages
+are routed to their stage pipelines' lane pools immediately, and each
+``poll``/``run`` round harvests completed stage outputs and submits the
+newly-ready frontier (stage inputs assembled by ``StageSpec.bind`` from
+the DAG args + upstream outputs — the cross-launch handoff buffers
+described by the stages' stream descriptors).  Stage buckets price
+through the same cost model as everything else; at equal deadline,
+buckets carrying **critical-path** stages (``DagSpec.criticality`` —
+``core/criticality.plan_split`` over the stages' declared FLOPs models)
+flush and admit ahead of slack-stage and standalone buckets.
+``chained=True`` serves the spec's fused stage list (adjacent stages
+lane-resident in one kernel, e.g. ``pusch_chain``) instead of the
+stage-independent list.  Stage jobs inherit the DAG's deadline and
+priority and run under the full overload/supervision machinery
+unchanged: a failed mid-DAG stage retries / degrades / bisects through
+the supervision ladder first, and only a *terminally* failed or dropped
+stage ends the DAG (reason ``"stage:<name>:<reason>"``), cancelling
+exactly the not-yet-submitted downstream stages — running siblings
+finish normally, so every declared stage is accounted and none is
+orphaned.  ``dag_submit`` / ``dag_stage`` / ``dag_done`` / ``dag_fail``
+/ ``dag_drop`` events extend the audit trail, and
+``MetricsSnapshot.dags`` reports end-to-end latency per DAG; muxes that
+never see a DAG emit the same events and metrics as before.
+
 Not ported yet, and refused rather than approximated: mesh-sharded lane
-pools (``mesh_size > 1``), served DAGs (``submit_dag``) and token decode
-(``attach_decode``) — later slices.
+pools (``mesh_size > 1``) and token decode (``attach_decode``) — later
+slices.
 
 API sketch::
 
@@ -149,13 +179,16 @@ from repro_torch.serve.tuning import BucketTuner
 
 
 def _bucket_priority(jobs: list[SolveJob]) -> tuple:
-    """Oldest deadline first; FIFO (arrival seq) among ties.  Derived
+    """Oldest deadline first; among deadline ties, critical-path DAG
+    stages (``job.crit``, from ``DagSpec.criticality``) rank ahead of
+    slack stages and standalone jobs; FIFO (arrival seq) last.  Derived
     from the queued jobs each time, so a bucket whose oldest jobs were
-    chunked away re-ranks correctly.  (The reference ranks critical-path
-    DAG stages between the two; no DAG is served here yet.)"""
+    chunked away re-ranks correctly.  Buckets with no DAG stages all get
+    rank 1, so non-DAG traffic orders exactly as before."""
     deadline = min((j.deadline for j in jobs if j.deadline is not None),
                    default=math.inf)
-    return (deadline, min(j.seq for j in jobs))
+    rank = 0 if any(j.crit for j in jobs) else 1
+    return (deadline, rank, min(j.seq for j in jobs))
 
 
 def _round(x: float) -> float:
@@ -212,6 +245,42 @@ class _Candidate:
     deadline: float
     seq: int
     riders: tuple = ()
+    rank: int = 1                   # 0: carries critical-path DAG stages
+
+
+@dataclasses.dataclass(eq=False)
+class DagJob:
+    """One submitted DAG (``SolverMux.submit_dag``): a set of stage
+    :class:`SolveJob` s the mux advances through the declared
+    producer->consumer edges.  (``eq=False``: identity object, like
+    SolveJob — field-wise ``__eq__`` would compare numpy arrays.)
+
+    ``stages`` maps stage name -> its submitted SolveJob, or
+    ``"cancelled"`` for downstream stages never submitted because an
+    upstream stage terminated the DAG — every declared stage is
+    accounted in exactly one of: submitted (terminal SolveJob) or
+    cancelled; no stage is ever orphaned.  ``outs`` holds completed
+    stage outputs (the cross-launch handoff buffers); ``crit`` is the
+    criticality plan's critical-stage set.  ``state`` mirrors SolveJob:
+    ``queued`` -> ``running`` once a stage is in flight -> terminal
+    ``done`` (``out`` = final stage's output) / ``failed`` / ``dropped``
+    (``reason`` = ``"stage:<name>:<stage reason>"``)."""
+
+    dag: str
+    spec: object
+    args: tuple
+    deadline: float | None
+    priority: str
+    submitted_at: float
+    seq: int
+    chained: bool = False
+    stages: dict = dataclasses.field(default_factory=dict)
+    outs: dict = dataclasses.field(default_factory=dict)
+    crit: frozenset = frozenset()
+    state: str = "queued"
+    out: np.ndarray | None = None
+    reason: str | None = None
+    finished_at: float | None = None
 
 
 class _LanePool:
@@ -323,6 +392,7 @@ class SolverMux(EngineCore):
         self._options = dict(options or {})
         self._pools: dict[str, _LanePool] = {}
         self._seq = 0
+        self._dags: list[DagJob] = []
         self.events: list[dict] = []
         # ---- launch supervision (module docstring) ----
         # injector stays None with no trace configured, keeping every
@@ -405,20 +475,139 @@ class SolverMux(EngineCore):
                                     job.submitted_at)
         return job
 
-    def submit_dag(self, name: str, *args, **kwargs):
-        """Served pipeline DAGs are not ported yet."""
-        raise NotImplementedError(
-            f"dag {name!r}: served DAGs (the PUSCH/SVD stage kernels "
-            f"K5-K9) are a later slice")
+    # ---------------- DAG jobs ----------------
+
+    def submit_dag(self, name: str, *args, deadline: float | None = None,
+                   priority: str = "best_effort",
+                   chained: bool = False) -> DagJob:
+        """Submit one DAG job (a registered :class:`repro_torch.kernels.
+        DagSpec`): its root stages (empty ``consumes``) are routed to
+        their stage pipelines' lane pools immediately; downstream stages
+        are submitted by :meth:`poll` / :meth:`run` as their producers'
+        outputs land (``DagJob.outs`` — the cross-launch stage handoff
+        buffers).  ``chained`` serves the spec's declared fused stage
+        list (e.g. the one-launch channel-estimate->equalize chain)
+        instead of the stage-independent list.
+
+        Stage jobs inherit ``deadline`` and ``priority`` (``"hard"``
+        stages are never shed, so a hard DAG either completes or fails
+        through the supervision ladder — never silently dropped), and
+        carry the criticality plan's per-stage flag: critical-path
+        stages admit ahead of slack stages at equal deadline."""
+        if priority not in SolveJob.PRIORITIES:
+            raise ValueError(f"priority must be one of "
+                             f"{SolveJob.PRIORITIES}, got {priority!r}")
+        from repro_torch import kernels as K
+        spec = K.get_dag(name)
+        stages = spec.stage_list(chained=chained)
+        shapes = tuple(np.shape(a) for a in args)
+        critical, _slack = spec.criticality(shapes, chained=chained)
+        now = self.clock()
+        self._seq += 1
+        dj = DagJob(dag=name, spec=spec,
+                    args=tuple(np.asarray(a) for a in args),
+                    deadline=deadline, priority=priority,
+                    submitted_at=now, seq=self._seq, chained=chained,
+                    crit=frozenset(critical))
+        self._dags.append(dj)
+        self.recorder.record_dag_submit(name)
+        self._event("dag_submit", t=now, dag=name, seq=dj.seq,
+                    stages=[s.name for s in stages],
+                    critical=sorted(dj.crit), chained=chained)
+        for stage in stages:
+            if not stage.consumes:
+                self._submit_stage(dj, stage, now)
+        return dj
+
+    def _submit_stage(self, dj: DagJob, stage, now: float) -> None:
+        """Route one ready DAG stage to its pipeline's lane pool: the
+        stage's ``bind`` assembles its inputs from the DAG args and the
+        produced upstream outputs, and the resulting SolveJob is tagged
+        back to the DAG (+ its criticality rank) for advancement."""
+        bound = stage.bind(dj.args, dj.outs)
+        job = self.submit(stage.pipeline, *bound, deadline=dj.deadline,
+                          priority=dj.priority)
+        job.dag = dj
+        job.stage = stage.name
+        job.crit = stage.name in dj.crit
+        dj.stages[stage.name] = job
+        if dj.state == "queued":
+            dj.state = "running"
+        self._event("dag_stage", t=now, dag=dj.dag, seq=dj.seq,
+                    stage=stage.name, pipeline=stage.pipeline,
+                    job=job.seq, critical=job.crit)
+
+    def _advance_dags(self, now: float) -> bool:
+        """Advance every in-flight DAG: harvest completed stage outputs,
+        submit newly-ready stages (all ``consumes`` produced), finish
+        DAGs whose stages are all done, and cascade a terminal stage
+        failure — the failed/dropped stage ends the DAG with reason
+        ``"stage:<name>:<reason>"`` and every not-yet-submitted
+        downstream stage is marked ``"cancelled"`` (running sibling
+        stages finish normally through their own launches), so no stage
+        is ever orphaned.  Loops to a fixed point within one call (a
+        stage rejected at submit, e.g. non-finite input, is cascaded in
+        the same round).  Returns True when anything progressed."""
+        progressed = False
+        while True:
+            round_progress = False
+            for dj in self._dags:
+                if dj.state in ("done", "failed", "dropped"):
+                    continue
+                stages = dj.spec.stage_list(chained=dj.chained)
+                failed_stage = None
+                for stage in stages:
+                    sj = dj.stages.get(stage.name)
+                    if not isinstance(sj, SolveJob):
+                        continue
+                    if sj.state == "done" and stage.name not in dj.outs:
+                        dj.outs[stage.name] = sj.out
+                        round_progress = True
+                    elif sj.state in ("failed", "dropped") \
+                            and failed_stage is None:
+                        failed_stage = (stage.name, sj)
+                if failed_stage is not None:
+                    sname, sj = failed_stage
+                    dj.state = sj.state
+                    dj.reason = f"stage:{sname}:{sj.reason or sj.state}"
+                    dj.finished_at = now
+                    cancelled = [s.name for s in stages
+                                 if s.name not in dj.stages]
+                    for cname in cancelled:
+                        dj.stages[cname] = "cancelled"
+                    self.recorder.record_dag(dj.dag, dj.submitted_at,
+                                             now, dj.state, dj.priority)
+                    self._event(
+                        "dag_fail" if dj.state == "failed" else
+                        "dag_drop", t=now, dag=dj.dag, seq=dj.seq,
+                        stage=sname, reason=dj.reason,
+                        cancelled=cancelled)
+                    round_progress = True
+                    continue
+                if all(s.name in dj.outs for s in stages):
+                    dj.state = "done"
+                    dj.out = dj.outs[stages[-1].name]
+                    dj.finished_at = now
+                    self.recorder.record_dag(dj.dag, dj.submitted_at,
+                                             now, "done", dj.priority)
+                    self._event("dag_done", t=now, dag=dj.dag,
+                                seq=dj.seq,
+                                latency=_round(now - dj.submitted_at))
+                    round_progress = True
+                    continue
+                for stage in stages:
+                    if stage.name in dj.stages:
+                        continue
+                    if all(c in dj.outs for c in stage.consumes):
+                        self._submit_stage(dj, stage, now)
+                        round_progress = True
+            if not round_progress:
+                return progressed
+            progressed = True
 
     def attach_decode(self, engine) -> None:
         """Token decode is not ported yet."""
         raise NotImplementedError("token decode is a later slice")
-
-    def _advance_dags(self, now: float) -> bool:
-        """DAG advancement seam: no DAG can be attached yet, so nothing
-        ever progresses."""
-        return False
 
     def _poll_decode(self, now: float) -> list:
         """Decode service seam: no decode engine can be attached yet."""
@@ -830,17 +1019,17 @@ class SolverMux(EngineCore):
                              or self._expired(rest, now, pool, key)):
                     cands.append(self._mk_cand(pool, key, rest, True,
                                                aged, price))
-        cands.sort(key=lambda c: (not c.aged, c.deadline, c.seq))
+        cands.sort(key=lambda c: (not c.aged, c.deadline, c.rank, c.seq))
         return cands
 
     @staticmethod
     def _mk_cand(pool, key, chunk, partial, aged, price) -> _Candidate:
-        deadline, seq = _bucket_priority(chunk)
+        deadline, rank, seq = _bucket_priority(chunk)
         return _Candidate(pool=pool, key=key, jobs=list(chunk),
                           partial=partial,
                           hard=any(j.priority == "hard" for j in chunk),
                           aged=aged, price=price, deadline=deadline,
-                          seq=seq)
+                          seq=seq, rank=rank)
 
     def _admit(self, cands: list[_Candidate],
                now: float) -> list[_Candidate]:

@@ -57,6 +57,15 @@ class SolveJob:
     priority: str = "best_effort"
     state: str = "queued"
     reason: str | None = None
+    dag: object | None = None
+    """The :class:`repro_torch.serve.mux.DagJob` this job is a stage of
+    (``None`` for ordinary standalone jobs)."""
+    stage: str | None = None
+    """Stage name within ``dag`` (``None`` for standalone jobs)."""
+    crit: bool = False
+    """True when criticality planning (``DagSpec.criticality``) put this
+    stage on the DAG's critical path — the mux admits critical-stage
+    buckets ahead of slack ones at equal deadline."""
 
     def shape_key(self) -> tuple:
         """Shape bucket: per-arg (shape, dtype) — jobs sharing it can be

@@ -1,4 +1,5 @@
-"""The port's fused solver pipelines (K1-K4) against the JAX reference.
+"""The port's fused solver pipelines (K1-K4) against the JAX reference
+(the DAG stages K5-K9: ``tests/test_torch_pusch.py``).
 
 The same numpy inputs, made from a seed, go through the reference's
 Pallas kernels (interpret mode on the CPU) and oracles, and through the

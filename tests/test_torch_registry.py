@@ -14,18 +14,27 @@ from repro_torch import kernels as TK  # noqa: E402
 from repro_torch.serve import ManualClock, SolverMux  # noqa: E402
 
 SPECS = ["cholesky_solve", "qr_solve", "mmse_equalize"]
+DAG_SPECS = ["svd", "fft", "pusch_fft", "pusch_chanest", "pusch_chain",
+             "svd_factor", "svd_apply"]
 
 
 def test_registry_holds_the_three_served_pipelines():
-    assert TK.names() == SPECS
-    for name in SPECS:
+    """The three solver pipelines, and the DAG stages and kernels ported
+    beside them, in the reference's registration order and with its
+    sizes, tolerances, kinds, variants and stream descriptors."""
+    assert TK.names() == [n for n in RK.names() if n in SPECS + DAG_SPECS]
+    assert TK.names("pipeline")[:3] == SPECS
+    for name in SPECS + DAG_SPECS:
         t, j = TK.get(name), RK.get(name)
         assert (t.sizes, t.rtol, t.kind) == (j.sizes, j.rtol, j.kind)
         assert [v.name for v in t.variants] == [v.name for v in j.variants]
         for tv, jv in zip(t.variants, j.variants):
             assert tv.sizes == jv.sizes
-        assert t.stream(16).capability == j.stream(16).capability == "RI"
-        assert t.stream(16).length() == j.stream(16).length()
+        n = t.sizes[0]
+        assert t.stream(n).capability == j.stream(n).capability
+        assert t.stream(n).length() == j.stream(n).length()
+        if name in SPECS:
+            assert t.stream(16).capability == "RI"
 
 
 def _registry_shapes():

@@ -113,7 +113,7 @@ def test_main_cpu_run_reports_summary():
     assert summary["oracle_rel_err"] < 1e-3
 
 
-@pytest.mark.parametrize("flag", [["--pusch"], ["--decode"],
+@pytest.mark.parametrize("flag", [["--pusch", "--mesh", "2"], ["--decode"],
                                   ["--chaos"], ["--mesh", "2"]])
 def test_main_refuses_later_slices(flag, capsys):
     with pytest.raises(SystemExit):
@@ -125,8 +125,6 @@ def test_mux_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="later slice"):
         SolverMux(lanes=2, mesh_size=2, device="cpu")
     mux = SolverMux(lanes=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mux.submit_dag("pusch_receive")
     with pytest.raises(NotImplementedError, match="later slice"):
         mux.attach_decode(object())
 
@@ -141,6 +139,11 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
         PipelineEngine("qr_solve")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TS.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.main(["--pusch"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tp.pusch_fft(np.zeros((1, 2, 64), np.float32),
+                     np.zeros((1, 2, 64), np.float32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tp.cholesky_solve(np.eye(2, dtype=np.float32)[None],
                           np.ones((1, 2, 1), np.float32))
