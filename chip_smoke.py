@@ -9,7 +9,7 @@ Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (nvidia-smi), TF32 off;
   2. build   — every kernel in src/repro_torch/csrc built from source;
-  3. kernels — K1-K9 held against their plain PyTorch versions and the
+  3. kernels — K1-K11 held against their plain PyTorch versions and the
                oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
                PRBs x 12 subcarriers, 3GPP TS 38.101-1 Table 5.3.2-1;
@@ -17,23 +17,33 @@ Phases, each fatal on failure:
                3276 rows of 1024) and on the guard cases (poisoned upper
                triangle, singular and rank-deficient lanes, filler lanes,
                a unit impulse).  The SVD is held by sorted spectrum and
-               reconstruction, its factors being sign/order ambiguous;
+               reconstruction, its factors being sign/order ambiguous.
+               The mid-range path: the blocked K10/K11 at n = 128 and
+               256 with both panel widths at B = 3276, and K1-K4 on lanes
+               past shared memory (their global form); where both forms
+               fit, the shared form against the plain version and the
+               global form equal to it bit for bit;
   4. serve   — the main paths, each with every kernel's launch count
                reset before and read after: the TTI slot mix
                (``repro_torch.launch.serve_solvers.main`` on two mixes and
-               the committed overload trace replayed to its golden file)
-               and the served DAGs (``main --pusch`` staged with the
+               the committed overload trace replayed to its golden file),
+               the served DAGs (``main --pusch`` staged with the
                committed fault trace and chained, at n = 8 and at n = 24
                with 32 lanes over 8 ticks, and the committed PUSCH trace
-               replayed to its golden file);
+               replayed to its golden file) and the mid-range slot mix
+               (``main --sizes 128,256``, with and without the overload
+               policy: K10, K11 and the global forms of K2 and K3);
   5. times   — each kernel at B = 3276 timed with CUDA events (cold L2)
                beside its bound, its plain version and, where one PyTorch
-               call computes the same function, that call.
+               call computes the same function, that call; the blocked
+               kernels and the global forms at n = 128 and 256, and
+               K2's shared form at n = 128.
 
 The second-to-last lines are the ``{"kernels": [...]}`` JSON line and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -48,6 +58,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 LANES = 3276                 # one 100 MHz carrier at 30 kHz SCS
 SLOT_SIZES = (8, 16, 32)
+MID_SIZES = (128, 256)       # the blocked registry sizes (n % 32 == 0)
+CHECK_LANES = 512            # lanes of the past-shared-memory checks
+# (kernel, n, m or None for n + 4): K1-K4 lanes past shared memory, which
+# run the global form -- K2 and K3 as the mid-range mix sends them, K1
+# and K4 at sizes that are not multiples of 32 (so not blocked)
+GLOBAL_CASES = (("cholesky_solve", 250, None), ("mmse_equalize", 256, None),
+                ("mmse_equalize_split", 128, None),
+                ("mmse_equalize_split", 256, None), ("qr_solve", 250, 254))
 NFFT = 64                    # the PUSCH DAG's OFDM size
 NFFT_MAX = 1024              # the largest registered FFT size
 SWEEPS = 14                  # Jacobi sweeps of the served svd_factor stage
@@ -56,11 +74,61 @@ PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
 RTOL = 1e-4                  # the solver specs' rtol
 SVD_RTOL = 4.0 * (2.0 ** -23) ** 0.5   # 4 sqrt(eps_f32), the SVD specs'
 RTOLS = {"fft": 1e-3, "pusch_fft": 1e-3, "svd": SVD_RTOL,
-         "svd_factor": SVD_RTOL}
+         "svd_factor": SVD_RTOL, "qr_solve_blocked": 1e-3}
+# At n >= 128 the reference holds blocked Cholesky to 1e-3 against the
+# oracle and blocked QR to 1e-3 (tests/test_variants.py).  The MMSE Gram
+# H^T H + 0.1 I at m = n + 4 has condition ~9.4e3 at n = 256, and fp32
+# solves differ from float64 by ~1.5e-4 there, so MMSE at n >= 128 is
+# held to 1e-3, the serving spot check's tolerance.
+MID_RTOL = 1e-3
+ORACLE_RTOLS = {"cholesky_solve_blocked": MID_RTOL,
+                "qr_solve_blocked": MID_RTOL}
 # check key -> the kernel it runs (stage adapters run a kernel of their own)
 KERNEL_OF = {"pusch_fft": "fft", "svd_factor": "svd"}
-# registry spec -> check key
-KEY_OF_SPEC = {"pusch_chanest": "channel_estimate"}
+# (check key, registry spec, variant): the registry cases each kernel is
+# held to; the tiled variants (K12-K14) are not ported yet
+REGISTRY_CHECKS = (
+    ("svd", "svd", "base"), ("fft", "fft", "base"),
+    ("cholesky_solve", "cholesky_solve", "base"),
+    ("cholesky_solve_blocked", "cholesky_solve", "blocked"),
+    ("qr_solve", "qr_solve", "base"),
+    ("qr_solve_blocked", "qr_solve", "blocked"),
+    ("mmse_equalize", "mmse_equalize", "base"),
+    ("mmse_equalize_split", "mmse_equalize", "split_complex"),
+    ("pusch_fft", "pusch_fft", "base"),
+    ("channel_estimate", "pusch_chanest", "base"),
+    ("pusch_chain", "pusch_chain", "base"),
+    ("svd_factor", "svd_factor", "base"),
+    ("svd_apply", "svd_apply", "base"))
+# check keys held at B = LANES lanes of each of SLOT_SIZES
+SLOT_KEYS = ("cholesky_solve", "mmse_equalize", "mmse_equalize_split",
+             "qr_solve", "channel_estimate", "pusch_chain", "pusch_fft",
+             "svd", "svd_factor", "svd_apply")
+# kernel -> its mid-range timing rows at B = LANES: (n, m or None for
+# n + 4, the form a two-form kernel must run); K2 at n = 128 is the
+# shared form the mid-range mix runs beside its global form at n = 256
+MID_TIMES = {"cholesky_solve": ((250, None, "global"),),
+             "cholesky_solve_blocked": ((128, None, None),
+                                        (256, None, None)),
+             "mmse_equalize": ((128, None, "shared"),
+                               (256, None, "global")),
+             "mmse_equalize_split": ((128, None, "global"),
+                                     (256, None, "global")),
+             "qr_solve": ((250, 254, "global"),),
+             "qr_solve_blocked": ((128, None, None), (256, None, None))}
+
+
+@contextlib.contextmanager
+def global_form(common):
+    """Run every two-form kernel (K1-K4) in its global form, also where
+    the lane fits in shared memory: the form follows the shared-memory
+    limit, which this lowers to 0 for the block."""
+    limit = common.MAX_SMEM_BYTES
+    common.MAX_SMEM_BYTES = 0
+    try:
+        yield
+    finally:
+        common.MAX_SMEM_BYTES = limit
 
 
 def fail(msg: str):
@@ -76,6 +144,18 @@ def card_line() -> str:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
+
+
+def clocks_line() -> str:
+    """The SM clock, its maximum, the temperature and the power draw now,
+    as nvidia-smi reports them (or its error: informational only).  Two
+    cards of one model and power limit can run at different clocks."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+         "temperature.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return (smi.stdout.strip() or smi.stderr.strip()
+            or "no output").splitlines()[0]
 
 
 def close(got, want, rtol=RTOL):
@@ -106,6 +186,8 @@ def main():
              f"(capability {torch.cuda.get_device_capability(0)})")
     card = card_line()
     print(card, flush=True)
+    print(f"clocks (sm, max sm, temperature, power draw): {clocks_line()}",
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -131,6 +213,8 @@ def main():
 
     kern = {k.name: k for k in common.KERNELS}
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
+             "cholesky_solve_blocked": pp.cholesky_solve_blocked_fused,
+             "qr_solve_blocked": pp.qr_solve_blocked_fused,
              "mmse_equalize": pp.mmse_equalize_fused,
              "mmse_equalize_split": pp.mmse_equalize_split_fused,
              "qr_solve": pp.qr_solve_fused,
@@ -143,6 +227,8 @@ def main():
                  pp.svd_factor_fused(a))),
              "svd_apply": pp.svd_apply_fused}
     plain = {"cholesky_solve": pp.cholesky_solve_plain,
+             "cholesky_solve_blocked": pp.cholesky_solve_blocked_plain,
+             "qr_solve_blocked": pp.qr_solve_blocked_plain,
              "mmse_equalize": pp.mmse_equalize_plain,
              "mmse_equalize_split": pp.mmse_equalize_split_plain,
              "qr_solve": pp.qr_solve_plain,
@@ -155,6 +241,8 @@ def main():
                  pp.svd_factor_plain(a))),
              "svd_apply": pp.svd_apply_plain}
     oracle = {"cholesky_solve": ref.cholesky_solve,
+              "cholesky_solve_blocked": ref.cholesky_solve,
+              "qr_solve_blocked": ref.qr_solve,
               "mmse_equalize": ref.mmse_equalize,
               "mmse_equalize_split": ref.mmse_equalize_split,
               "qr_solve": ref.qr_solve,
@@ -170,21 +258,23 @@ def main():
     max_err = {name: 0.0 for name in kern}
     failures = []
 
-    def check(key, args, label, oracle_args=None):
-        """Kernel vs plain version (same card inputs) vs oracle (on
-        ``oracle_args``, default the same inputs)."""
-        rtol = RTOLS.get(key, RTOL)
-        got = fused[key](*args)
+    def check(key, args, label, oracle_args=None, rtol=None, **kw):
+        """Kernel vs plain version (same card inputs, both given ``kw``)
+        vs oracle (on ``oracle_args``, default the same inputs)."""
+        rtol = rtol or RTOLS.get(key, RTOL)
+        rtol_o = max(rtol, ORACLE_RTOLS.get(key, rtol))
+        got = fused[key](*args, **kw)
         torch.cuda.synchronize()
-        want = plain[key](*args)
+        want = plain[key](*args, **kw)
         ok, err = close(got, want, rtol)
         name = KERNEL_OF.get(key, key)
         max_err[name] = max(max_err[name], err)
-        ok_o, err_o = close(got, oracle[key](*(oracle_args or args)), rtol)
+        ok_o, err_o = close(got, oracle[key](*(oracle_args or args)),
+                            rtol_o)
         status = "ok" if ok and ok_o else "MISMATCH"
-        print(f"  {key:<20} {label:<28} |kernel-plain| {err:.3e}  "
-              f"|kernel-oracle| {err_o:.3e}  (rtol {rtol:.3g}) {status}",
-              flush=True)
+        print(f"  {key:<22} {label:<28} |kernel-plain| {err:.3e}  "
+              f"|kernel-oracle| {err_o:.3e}  (rtol {rtol:.3g}/"
+              f"{rtol_o:.3g}) {status}", flush=True)
         if not (ok and ok_o):
             failures.append(f"{key} {label}")
         return got
@@ -193,20 +283,48 @@ def main():
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(dev)
 
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def grand(*shape):
+        """Standard normal float32 made on the card from a seeded
+        generator: the mid-range cases are too large to make on the
+        host in time."""
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def mid_case(key, b, n, m=None):
+        """Per-lane shapes of the mid-range slot mix (build_slot_jobs at
+        n = 128..511: m = n + 4, k = 2, k = 1 for QR), made on the card;
+        Cholesky systems are X X^T + n I as sample_spd makes them."""
+        m = n + 4 if m is None else m
+        if key.startswith("cholesky_solve"):
+            x = grand(b, n, n)
+            a = torch.baddbmm(n * torch.eye(n, device=dev), x,
+                              x.transpose(-1, -2))
+            return a, grand(b, n, 2)
+        if key.startswith("qr_solve"):
+            return grand(b, m, n), grand(b, m, 1)
+        if key == "mmse_equalize":
+            return grand(b, m, n), grand(b, m, 2)
+        if key == "mmse_equalize_split":
+            return grand(b, m, n), grand(b, m, n), grand(b, m, 2), \
+                grand(b, m, 2)
+        raise KeyError(key)
+
     def slot_case(key, rng, b, n):
         """The main paths' own per-lane shapes: the slot mix's
         (build_slot_jobs) and the PUSCH DAG's (m = n + 4 antennas,
         p = 2n pilots, k = 2 data symbols, 64-point FFT)."""
         m, p = n + 4, 2 * n
         f = lambda *s: rand(rng, *s)
-        if key == "cholesky_solve":
+        if key in ("cholesky_solve", "cholesky_solve_blocked"):
             return (torch.from_numpy(sample_spd(rng, b, n)).to(dev),
                     f(b, n, 2))
         if key == "mmse_equalize":
             return f(b, m, n), f(b, m, 2)
         if key == "mmse_equalize_split":
             return f(b, m, n), f(b, m, n), f(b, m, 2), f(b, m, 2)
-        if key == "qr_solve":
+        if key in ("qr_solve", "qr_solve_blocked"):
             return f(b, m, n), f(b, m, 1)
         if key == "channel_estimate":
             return f(b, n, p), f(b, m, p)
@@ -223,20 +341,17 @@ def main():
     # ---------------- 3. kernels against plain versions ----------------
     print("kernels vs plain versions and oracles:", flush=True)
     rng = np.random.default_rng(0)
-    for spec in K.specs():
-        variants = [(KEY_OF_SPEC.get(spec.name, spec.name), spec.base)] + [
-            ("mmse_equalize_split", v) for v in spec.variants
-            if v.name == "split_complex"]
-        for key, variant in variants:
-            for n in variant.sizes:
-                args = tuple(a.to(dev) for a in variant.make_case(rng, n))
-                check(key, args, f"registry n={n}")
-    for key in fused:
-        if key == "fft":
-            check(key, (rand(rng, LANES, NFFT_MAX),
-                        rand(rng, LANES, NFFT_MAX)),
-                  f"{LANES} rows of {NFFT_MAX}")
-            continue
+    for key, spec_name, variant_name in REGISTRY_CHECKS:
+        spec = K.get(spec_name)
+        variant = spec.base if variant_name == "base" else next(
+            v for v in spec.variants if v.name == variant_name)
+        make = variant.make_case or spec.make_case
+        for n in variant.sizes:
+            args = tuple(a.to(dev) for a in make(rng, n))
+            check(key, args, f"registry n={n}")
+    check("fft", (rand(rng, LANES, NFFT_MAX), rand(rng, LANES, NFFT_MAX)),
+          f"{LANES} rows of {NFFT_MAX}")
+    for key in SLOT_KEYS:
         for n in SLOT_SIZES:
             check(key, slot_case(key, rng, LANES, n), f"B={LANES} n={n}")
 
@@ -306,9 +421,91 @@ def main():
         if not (torch.equal(re, torch.ones_like(re))
                 and torch.equal(im, torch.zeros_like(im))):
             failures.append(f"fft: unit impulse nf={nf} not all ones")
+
+    # ---- the mid-range path: K10/K11, and K1-K4 past shared memory ----
+    print("mid-range path (n = 128-511):", flush=True)
+    for key in ("cholesky_solve_blocked", "qr_solve_blocked"):
+        for n in MID_SIZES:
+            args = mid_case(key, LANES, n)
+            for bs in (32, 64):
+                check(key, args, f"B={LANES} n={n} bs={bs}", bs=bs)
+            del args
+    for key, n, m in GLOBAL_CASES:
+        k = kern[key]
+        before = k.launches_global
+        check(key, mid_case(key, CHECK_LANES, n, m),
+              f"global B={CHECK_LANES} n={n}",
+              rtol=None if key == "cholesky_solve" else MID_RTOL)
+        if k.launches_global != before + 1:
+            failures.append(f"{key} n={n}: the global form did not run")
+    # sizes where both forms fit: the shared form against the plain
+    # version (K2 at n = 128 is the mid-range mix's own shape), then the
+    # global form against the shared one, bit for bit
+    for key, n in (("cholesky_solve", 128), ("mmse_equalize", 128),
+                   ("mmse_equalize_split", 96), ("qr_solve", 128)):
+        args = mid_case(key, CHECK_LANES, n)
+        before = kern[key].launches_global
+        shared = check(key, args, f"shared B={CHECK_LANES} n={n}",
+                       rtol=None if key == "cholesky_solve" else MID_RTOL)
+        with global_form(common):
+            glob = fused[key](*args)
+        if kern[key].launches_global != before + 1:
+            failures.append(f"{key} n={n}: the forms did not both run")
+        same = torch.equal(shared, glob)
+        print(f"  {key:<22} n={n}: global form == shared form bit for "
+              f"bit: {same}", flush=True)
+        if not same:
+            failures.append(f"{key} n={n}: global form != shared form")
+
+    a, rhs = mid_case("cholesky_solve", 4, 128)
+    clean = pp.cholesky_solve_blocked_fused(a, rhs, bs=32)
+    poisoned = a.clone()
+    iu = torch.triu_indices(128, 128, offset=1)
+    poisoned[:, iu[0], iu[1]] = float("nan")
+    got = check("cholesky_solve_blocked", (poisoned, rhs),
+                "poisoned upper n=128", oracle_args=(a, rhs), bs=32)
+    if not torch.equal(got, clean):
+        failures.append("cholesky_solve_blocked: upper-triangle NaN leaked")
+    v = grand(1, 128, 5)
+    singular = v @ v.transpose(-1, -2)
+    mm = grand(1, 128, 128)
+    mm[:, 40] = mm[:, 3]                  # pivot 40: the second bs=32 panel
+    deficient = mm @ mm.transpose(-1, -2)
+    for label, sys_a in (("singular rank 5", singular),
+                         ("deficient pivot 40", deficient)):
+        b2 = grand(1, 128, 2)
+        out = pp.cholesky_solve_blocked_fused(sys_a.contiguous(), b2, bs=32)
+        want = pp.cholesky_solve_blocked_plain(sys_a.contiguous(), b2,
+                                               bs=32)
+        guards.append((f"cholesky_solve_blocked {label}", out))
+        zeros = torch.all(out == 0, dim=-1)
+        if not torch.equal(zeros, torch.all(want == 0, dim=-1)) \
+                or not bool(zeros.any()):
+            failures.append(f"cholesky_solve_blocked {label}: zeroed "
+                            f"components differ from the plain version")
+    qa, qb = mid_case("qr_solve", 2, 128)
+    qa[:, :, 40] = 0.0                    # zero column in the second panel
+    qa[1, :, 50] = qa[1, :, 3]            # and a duplicated one
+    xq = pp.qr_solve_blocked_fused(qa, qb, bs=32)
+    guards.append(("qr_solve_blocked deficient panel 2", xq))
+    if not torch.equal(xq[:, 40], torch.zeros_like(xq[:, 40])):
+        failures.append("qr_solve_blocked: zero column not zeroed")
+    for name, key in (("cholesky_solve", "cholesky_solve_blocked"),
+                      ("qr_solve", "qr_solve_blocked")):
+        spec = K.get(name)
+        for n in MID_SIZES:
+            case = mid_case(key, 1, n)
+            lane = spec.filler(tuple(tuple(t.shape[1:]) for t in case),
+                               (np.dtype("float32"),) * 2)
+            out = fused[key](*(torch.from_numpy(t)[None].to(dev)
+                               for t in lane))
+            guards.append((f"{key} filler lane n={n}", out))
+            if not torch.equal(out, torch.zeros_like(out)):
+                failures.append(f"{key}: filler lane n={n} not exactly 0")
+
     for label, out in guards:
         finite = bool(torch.isfinite(out).all())
-        print(f"  guard {label:<34} finite={finite}")
+        print(f"  guard {label:<38} finite={finite}")
         if not finite:
             failures.append(f"guard {label}: non-finite output")
     if failures:
@@ -319,17 +516,29 @@ def main():
     from repro_torch.serve import CostModel, OverloadPolicy
     launches = {name: 0 for name in kern}
 
-    def read_launches(path: str, expect: tuple):
+    launches_global = {name: 0 for name in kern}
+
+    def reset_launches():
+        for k in common.KERNELS:
+            k.launches = 0
+            k.launches_global = 0
+
+    def read_launches(path: str, expect: tuple, expect_global=()):
         counts = {k.name: k.launches for k in common.KERNELS}
-        print(f"main-path launches ({path}): {json.dumps(counts)}",
+        glob = {k.name: k.launches_global for k in common.KERNELS
+                if k.launches_global}
+        print(f"main-path launches ({path}): {json.dumps(counts)}; "
+              f"of them in the global form: {json.dumps(glob)}",
               flush=True)
         if not all(counts[name] for name in expect):
             fail(f"a kernel of the {path} path never launched: {counts}")
+        if not all(glob.get(name) for name in expect_global):
+            fail(f"a global form of the {path} path never ran: {glob}")
         for name, c in counts.items():
             launches[name] += c
+            launches_global[name] += glob.get(name, 0)
 
-    for k in common.KERNELS:
-        k.launches = 0
+    reset_launches()
     for argv in (["--slots", "8", "--lanes", "8", "--sizes", "8,12",
                   "--policy"],
                  ["--slots", "8", "--lanes", "32", "--sizes", "16,32",
@@ -353,8 +562,7 @@ def main():
     read_launches("TTI slot mix", ("cholesky_solve", "mmse_equalize",
                                    "mmse_equalize_split", "qr_solve"))
 
-    for k in common.KERNELS:
-        k.launches = 0
+    reset_launches()
     fault_trace = str(ROOT / "tests" / "data" / "pusch_fault_trace.json")
     for argv in (["--pusch", "--fault-trace", fault_trace],
                  ["--pusch", "--sizes", "24", "--lanes", "32",
@@ -385,6 +593,22 @@ def main():
     read_launches("served DAGs", ("mmse_equalize", "channel_estimate",
                                   "pusch_chain", "fft", "svd",
                                   "svd_apply"))
+
+    reset_launches()
+    for argv in (["--slots", "8", "--lanes", "32", "--sizes", "128,256"],
+                 ["--slots", "8", "--lanes", "32", "--sizes", "128,256",
+                  "--policy"]):
+        print(f"serve_solvers {' '.join(argv)}", flush=True)
+        summary = S_.main(argv)
+        print(f"  summary {json.dumps(summary)}")
+        if summary is None or summary["hard_dropped"] != 0 \
+                or not summary["oracle_rel_err"] < 1e-3 \
+                or summary["done"] != summary["jobs"]:
+            fail(f"serve {argv}: {summary}")
+    read_launches("mid-range slot mix",
+                  ("cholesky_solve_blocked", "qr_solve_blocked",
+                   "mmse_equalize", "mmse_equalize_split"),
+                  ("mmse_equalize", "mmse_equalize_split"))
 
     # ---------------- 5. times ----------------
     flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -417,7 +641,9 @@ def main():
         written once; the least float32 work, an FMA counted as two, a
         symmetric Gram matrix counted by one triangle (the registry's
         flops models count it whole, because they price work for the
-        cost model, not bound it)."""
+        cost model, not bound it).  A blocked kernel computes its base
+        kernel's function, so it has the same least work."""
+        key = key.removesuffix("_blocked")
         if key in ("fft", "pusch_fft"):
             nf = shapes[0][-1]
             rows = shapes[0][0] if key == "pusch_fft" else 1
@@ -475,6 +701,7 @@ def main():
     def library(key, args):
         """One PyTorch call computing the same function, where there is
         one (its inputs prepared outside the timed call), else None."""
+        key = key.removesuffix("_blocked")
         if key == "cholesky_solve":
             return lambda: torch.linalg.solve_ex(
                 *args, check_errors=False).result
@@ -493,49 +720,64 @@ def main():
     calls = {"pusch_fft": (pp.pusch_fft_fused, pp.pusch_fft_plain),
              "svd_factor": (pp.svd_factor_fused, pp.svd_factor_plain),
              "fft": (F.fft_fused, F.fft_plain)}
+    # the large plain versions (n >= 128) are timed once, after one
+    # warm-up call
     rows = []
     for name, k in kern.items():
         key = timed.get(name, name)
         kfn, pfn = calls.get(key, (fused[key], plain[key]))
-        cases = [(f"n={n}", n, slot_case(key, rng, LANES, n))
-                 for n in SLOT_SIZES]
+        cases = [(f"n={n}", n, None, lambda n=n: slot_case(key, rng,
+                                                           LANES, n))
+                 for n in SLOT_SIZES if key in SLOT_KEYS]
         if name == "fft":
-            cases.append((f"nf={NFFT_MAX}", None,
-                          (rand(rng, LANES, NFFT_MAX),
-                           rand(rng, LANES, NFFT_MAX))))
+            cases.append((f"nf={NFFT_MAX}", None, None,
+                          lambda: (rand(rng, LANES, NFFT_MAX),
+                                   rand(rng, LANES, NFFT_MAX))))
+        for n, m, form in MID_TIMES.get(name, ()):
+            cases.append((f"n={n}" + (f" {form}" if form else ""), n, form,
+                          lambda n=n, m=m: mid_case(key, LANES, n, m)))
         sweep = []
-        for label, n, args in cases:
-            tkey = key if n is not None else "fft"
+        for label, n, form, make in cases:
+            args = make()
+            tkey = key if label != f"nf={NFFT_MAX}" else "fft"
             tk, tp_ = calls.get(tkey, (kfn, pfn))
             shapes = tuple(tuple(a.shape[1:]) for a in args)
             lane_bytes, lane_flops = work(tkey, shapes)
             nbytes, flops = LANES * lane_bytes, LANES * lane_flops
             t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
             t_ops = flops / PEAK_F32_FLOPS * 1e3
+            before = k.launches_global
             ms, ms_max = time_ms(lambda: tk(*args), 30)
-            plain_ms = time_ms(lambda: tp_(*args), 3 if name != "svd"
-                               else 1)[0]
+            if (form == "global") != (k.launches_global > before):
+                fail(f"{name} {label}: ran the wrong form")
+            large = n is not None and n >= MID_SIZES[0]
+            plain_ms = time_ms(lambda: tp_(*args), 1 if name == "svd"
+                               or large else 3)[0]
             lib = library(tkey, args)
             lib_ms = time_ms(lib, 10)[0] if lib else None
             sweep.append({
-                "case": label, "n": n,
+                "case": label, "n": n, "form": form,
                 "shapes": [list(s) for s in shapes],
                 "ms": ms, "ms_max": ms_max, "plain_ms": plain_ms,
+                "plain_reps": 1 if name == "svd" or large else 3,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
                 "library_syncs": syncs(lib) if lib else None})
-            print(f"  time {name:<20} {label:<7} kernel {ms:.4f} ms (slowest "
-                  f"{ms_max:.4f})  plain "
+            print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
+                  f"(slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
                   + (f"  library {lib_ms:.4f} ms" if lib_ms else "")
                   + ("  (library syncs the host)"
                      if sweep[-1]["library_syncs"] else ""),
                   flush=True)
-        head = next(r for r in sweep if r["n"] == SLOT_SIZES[-1])
+            del args
+        head = next(r for r in sweep if r["n"] == SLOT_SIZES[-1]) \
+            if key in SLOT_KEYS else sweep[-1]
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
+            "launches_global": launches_global[name],
             "max_abs_err": max_err[name],
             "rtol": RTOLS.get(name, RTOL),
             "lanes": LANES, "shapes": head["shapes"],
@@ -548,6 +790,8 @@ def main():
                    ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {r['name']}")
 
+    print(f"clocks after timing (sm, max sm, temperature, power draw): "
+          f"{clocks_line()}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

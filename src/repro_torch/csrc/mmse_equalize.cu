@@ -15,6 +15,12 @@
 // keeps H, G and the right-hand sides in shared memory so nothing
 // round-trips device memory between the four stages, and shares the
 // factor -> forward -> back chain with K1 and K3 (lane_common.cuh).
+//
+// A lane larger than shared memory (n > 168 at m = n + 4, k = 2) takes
+// the global form: H and y are read in place from device memory, G lives
+// in a per-lane slice of a work buffer and x is solved in place in X; only
+// the chain's per-step scratch stays in shared memory.  Both forms run the
+// same source, so they agree bit for bit where both fit.
 #include <cstddef>
 
 #include "lane_common.cuh"
@@ -22,24 +28,40 @@
 namespace repro_torch {
 namespace {
 
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 mmse_equalize_kernel(const float* __restrict__ H, const float* __restrict__ Y,
-                     float* __restrict__ X, int m, int n, int k,
-                     float sigma2, float eps) {
+                     float* __restrict__ X, float* __restrict__ work, int m,
+                     int n, int k, float sigma2, float eps) {
   extern __shared__ float smem[];
-  float* h = smem;            // m * n
-  float* yv = h + m * n;      // m * k
-  float* g = yv + m * k;      // n * n
-  float* rhs = g + n * n;     // n * k
-  float* col = rhs + n * k;   // n
-  float* yk = col + n;        // k
-  float* thresh = yk + k;     // 1
   const size_t lane = blockIdx.x;
   const float* hl = H + lane * m * n;
   const float* yl = Y + lane * m * k;
-  for (int e = threadIdx.x; e < m * n; e += blockDim.x) h[e] = hl[e];
-  for (int e = threadIdx.x; e < m * k; e += blockDim.x) yv[e] = yl[e];
-  __syncthreads();
+  const float* h;             // m * n
+  const float* yv;            // m * k
+  float* g;                   // n * n
+  float* rhs;                 // n * k
+  float* col;                 // n
+  if (kGlobal) {              // H and y read in place, x solved in place
+    h = hl;
+    yv = yl;
+    g = work + lane * n * n;
+    rhs = X + lane * n * k;
+    col = smem;
+  } else {
+    float* hs = smem;
+    float* ys = hs + m * n;
+    for (int e = threadIdx.x; e < m * n; e += blockDim.x) hs[e] = hl[e];
+    for (int e = threadIdx.x; e < m * k; e += blockDim.x) ys[e] = yl[e];
+    h = hs;
+    yv = ys;
+    g = ys + m * k;
+    rhs = g + n * n;
+    col = rhs + n * k;
+    __syncthreads();
+  }
+  float* yk = col + n;        // k
+  float* thresh = yk + k;     // 1
   // Gram region: lower triangle of H^T H + sigma2 I
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
     const int i = e / n;
@@ -59,8 +81,10 @@ mmse_equalize_kernel(const float* __restrict__ H, const float* __restrict__ Y,
   }
   __syncthreads();
   chol_chain(g, rhs, n, k, eps, col, yk, thresh);
-  float* xl = X + lane * n * k;
-  for (int e = threadIdx.x; e < n * k; e += blockDim.x) xl[e] = rhs[e];
+  if (!kGlobal) {
+    float* xl = X + lane * n * k;
+    for (int e = threadIdx.x; e < n * k; e += blockDim.x) xl[e] = rhs[e];
+  }
 }
 
 size_t smem_bytes(int m, int n, int k) {
@@ -77,17 +101,33 @@ size_t mmse_equalize_smem(int m, int n, int k) {
   return repro_torch::smem_bytes(m, n, k);
 }
 
+// Floats of work buffer one lane of the global form needs (G).
+size_t mmse_equalize_work(int m, int n, int k) {
+  return static_cast<size_t>(n) * n;
+}
+
 // h (batch, m, n), y (batch, m, k) -> x (batch, n, k), all float32.
-int mmse_equalize_f32(const void* h, const void* y, void* x, int batch, int m,
-                      int n, int k, float sigma2, float eps, void* stream) {
+// work: null for the shared form, else batch * mmse_equalize_work floats.
+int mmse_equalize_f32(const void* h, const void* y, void* x, void* work,
+                      int batch, int m, int n, int k, float sigma2, float eps,
+                      void* stream) {
   using namespace repro_torch;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const float* hf = static_cast<const float*>(h);
+  const float* yf = static_cast<const float*>(y);
+  float* xf = static_cast<float*>(x);
+  float* wf = static_cast<float*>(work);
+  if (work) {
+    mmse_equalize_kernel<true>
+        <<<batch, kThreads, sizeof(float) * (n + k + 1), s>>>(
+            hf, yf, xf, wf, m, n, k, sigma2, eps);
+    return cudaGetLastError();
+  }
   const size_t smem = smem_bytes(m, n, k);
-  cudaError_t err = allow_smem(mmse_equalize_kernel, smem);
+  cudaError_t err = allow_smem(mmse_equalize_kernel<false>, smem);
   if (err != cudaSuccess) return err;
-  mmse_equalize_kernel<<<batch, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h), static_cast<const float*>(y),
-      static_cast<float*>(x), m, n, k, sigma2, eps);
+  mmse_equalize_kernel<false><<<batch, kThreads, smem, s>>>(
+      hf, yf, xf, wf, m, n, k, sigma2, eps);
   return cudaGetLastError();
 }
 

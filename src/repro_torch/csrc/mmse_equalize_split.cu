@@ -19,6 +19,15 @@
 // which is where -Gi would go, so C is parked there on its way to Gi),
 // keeps planes, system and right-hand sides in shared memory, and shares
 // the chain with K1 and K2.
+//
+// A lane larger than shared memory (n > 96 at m = n + 4, k = 2) takes the
+// global form: the four planes are read in place from device memory, the
+// 2n x 2n embedding lives in a per-lane slice of a work buffer (1 MB a
+// lane at n = 256) and x is solved in place in X; only the chain's
+// per-step scratch stays in shared memory.  Both forms run the same
+// source, so they agree bit for bit where both fit.  At n = 256 the chain
+// is 1,024 barrier-separated steps over a matrix that no longer fits in
+// L2 across the resident lanes, so it runs at device-memory speed.
 #include <cstddef>
 
 #include "lane_common.cuh"
@@ -26,34 +35,56 @@
 namespace repro_torch {
 namespace {
 
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 mmse_equalize_split_kernel(const float* __restrict__ Hr,
                            const float* __restrict__ Hi,
                            const float* __restrict__ Yr,
                            const float* __restrict__ Yi,
-                           float* __restrict__ X, int m, int n, int k,
-                           float sigma2, float eps) {
+                           float* __restrict__ X, float* __restrict__ work,
+                           int m, int n, int k, float sigma2, float eps) {
   extern __shared__ float smem[];
   const int n2 = 2 * n;
-  float* hr = smem;            // m * n
-  float* hi = hr + m * n;      // m * n
-  float* yr = hi + m * n;      // m * k
-  float* yi = yr + m * k;      // m * k
-  float* g = yi + m * k;       // 2n * 2n
-  float* rhs = g + n2 * n2;    // 2n * k
-  float* col = rhs + n2 * k;   // 2n
+  const size_t lane = blockIdx.x;
+  const float* hr;             // m * n
+  const float* hi;             // m * n
+  const float* yr;             // m * k
+  const float* yi;             // m * k
+  float* g;                    // 2n * 2n
+  float* rhs;                  // 2n * k
+  float* col;                  // 2n
+  if (kGlobal) {               // planes read in place, x solved in place
+    hr = Hr + lane * m * n;
+    hi = Hi + lane * m * n;
+    yr = Yr + lane * m * k;
+    yi = Yi + lane * m * k;
+    g = work + lane * n2 * n2;
+    rhs = X + lane * n2 * k;
+    col = smem;
+  } else {
+    float* hrs = smem;
+    float* his = hrs + m * n;
+    float* yrs = his + m * n;
+    float* yis = yrs + m * k;
+    for (int e = threadIdx.x; e < m * n; e += blockDim.x) {
+      hrs[e] = Hr[lane * m * n + e];
+      his[e] = Hi[lane * m * n + e];
+    }
+    for (int e = threadIdx.x; e < m * k; e += blockDim.x) {
+      yrs[e] = Yr[lane * m * k + e];
+      yis[e] = Yi[lane * m * k + e];
+    }
+    hr = hrs;
+    hi = his;
+    yr = yrs;
+    yi = yis;
+    g = yis + m * k;
+    rhs = g + n2 * n2;
+    col = rhs + n2 * k;
+    __syncthreads();
+  }
   float* yk = col + n2;        // k
   float* thresh = yk + k;      // 1
-  const size_t lane = blockIdx.x;
-  for (int e = threadIdx.x; e < m * n; e += blockDim.x) {
-    hr[e] = Hr[lane * m * n + e];
-    hi[e] = Hi[lane * m * n + e];
-  }
-  for (int e = threadIdx.x; e < m * k; e += blockDim.x) {
-    yr[e] = Yr[lane * m * k + e];
-    yi[e] = Yi[lane * m * k + e];
-  }
-  __syncthreads();
   // split Gram region: Gr into both diagonal blocks (lower triangles), and
   // C = Hr^T Hi, each entry once, into the upper-right block, which the
   // chain never reads
@@ -96,8 +127,10 @@ mmse_equalize_split_kernel(const float* __restrict__ Hr,
   }
   __syncthreads();
   chol_chain(g, rhs, n2, k, eps, col, yk, thresh);
-  float* xl = X + lane * n2 * k;
-  for (int e = threadIdx.x; e < n2 * k; e += blockDim.x) xl[e] = rhs[e];
+  if (!kGlobal) {
+    float* xl = X + lane * n2 * k;
+    for (int e = threadIdx.x; e < n2 * k; e += blockDim.x) xl[e] = rhs[e];
+  }
 }
 
 size_t smem_bytes(int m, int n, int k) {
@@ -116,19 +149,38 @@ size_t mmse_equalize_split_smem(int m, int n, int k) {
   return repro_torch::smem_bytes(m, n, k);
 }
 
+// Floats of work buffer one lane of the global form needs (the 2n x 2n
+// embedding).
+size_t mmse_equalize_split_work(int m, int n, int k) {
+  return 4 * static_cast<size_t>(n) * n;
+}
+
 // hr, hi (batch, m, n), yr, yi (batch, m, k) -> x (batch, 2n, k), float32.
+// work: null for the shared form, else batch * mmse_equalize_split_work
+// floats.
 int mmse_equalize_split_f32(const void* hr, const void* hi, const void* yr,
-                            const void* yi, void* x, int batch, int m, int n,
-                            int k, float sigma2, float eps, void* stream) {
+                            const void* yi, void* x, void* work, int batch,
+                            int m, int n, int k, float sigma2, float eps,
+                            void* stream) {
   using namespace repro_torch;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const float* hrf = static_cast<const float*>(hr);
+  const float* hif = static_cast<const float*>(hi);
+  const float* yrf = static_cast<const float*>(yr);
+  const float* yif = static_cast<const float*>(yi);
+  float* xf = static_cast<float*>(x);
+  float* wf = static_cast<float*>(work);
+  if (work) {
+    mmse_equalize_split_kernel<true>
+        <<<batch, kThreads, sizeof(float) * (2 * n + k + 1), s>>>(
+            hrf, hif, yrf, yif, xf, wf, m, n, k, sigma2, eps);
+    return cudaGetLastError();
+  }
   const size_t smem = smem_bytes(m, n, k);
-  cudaError_t err = allow_smem(mmse_equalize_split_kernel, smem);
+  cudaError_t err = allow_smem(mmse_equalize_split_kernel<false>, smem);
   if (err != cudaSuccess) return err;
-  mmse_equalize_split_kernel<<<batch, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hr), static_cast<const float*>(hi),
-      static_cast<const float*>(yr), static_cast<const float*>(yi),
-      static_cast<float*>(x), m, n, k, sigma2, eps);
+  mmse_equalize_split_kernel<false><<<batch, kThreads, smem, s>>>(
+      hrf, hif, yrf, yif, xf, wf, m, n, k, sigma2, eps);
   return cudaGetLastError();
 }
 

@@ -15,6 +15,11 @@
 // rows k.. of each step (the reflector is exactly zero above k), and
 // zeroes -- never clamps -- a solution component whose pivot falls below
 // the relative threshold, so a rank-deficient lane stays finite.
+//
+// A lane larger than shared memory (n >= 238 at m = n + 4, k = 1) takes the
+// global form: R and y live in a per-lane slice of a device work buffer
+// and only the reflector and its dot products stay in shared memory.
+// Both forms run qr_chain, so they agree bit for bit where both fit.
 #include <cstddef>
 
 #include "lane_common.cuh"
@@ -22,22 +27,16 @@
 namespace repro_torch {
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-qr_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                float* __restrict__ X, int m, int n, int k, float tiny) {
-  extern __shared__ float smem[];
-  float* r = smem;            // m * n
-  float* y = r + m * n;       // m * k
-  float* v = y + m * k;       // m: reflector
-  float* w = v + m;           // n + k: tau * v^T [R | y]
-  float* tau_s = w + n + k;   // 1
+// The Householder least-squares chain of _qr_solve_kernel on one lane:
+// min(n, m-1) reflections applied to R and y, then the guarded back
+// substitution.  r (m x n) and y (m x k) may live in shared or in device
+// memory; v (m), w (n + k) and tau_s (1) are shared scratch.  x is left in
+// y[:n].
+__device__ inline void qr_chain(float* r, float* y, int m, int n, int k,
+                                float tiny, float* v, float* w,
+                                float* tau_s) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const size_t lane = blockIdx.x;
-  for (int e = tid; e < m * n; e += nt) r[e] = A[lane * m * n + e];
-  for (int e = tid; e < m * k; e += nt) y[e] = B[lane * m * k + e];
-  __syncthreads();
-
   const int nref = m > 1 ? min(n, m - 1) : 0;
   for (int kk = 0; kk < nref; ++kk) {
     // householder region (warp 0): norm of the masked column, the
@@ -106,6 +105,35 @@ qr_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
     __syncthreads();
   }
+}
+
+template <bool kGlobal>
+__global__ void __launch_bounds__(kThreads)
+qr_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                float* __restrict__ X, float* __restrict__ work, int m, int n,
+                int k, float tiny) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const size_t lane = blockIdx.x;
+  float* r;                   // m * n
+  float* y;                   // m * k
+  float* v;                   // m: reflector
+  if (kGlobal) {
+    r = work + lane * (m * n + m * k);
+    y = r + m * n;
+    v = smem;
+  } else {
+    r = smem;
+    y = r + m * n;
+    v = y + m * k;
+  }
+  float* w = v + m;           // n + k: tau * v^T [R | y]
+  float* tau_s = w + n + k;   // 1
+  for (int e = tid; e < m * n; e += nt) r[e] = A[lane * m * n + e];
+  for (int e = tid; e < m * k; e += nt) y[e] = B[lane * m * k + e];
+  __syncthreads();
+  qr_chain(r, y, m, n, k, tiny, v, w, tau_s);
   float* xl = X + lane * n * k;
   for (int e = tid; e < n * k; e += nt) xl[e] = y[e];
 }
@@ -124,17 +152,32 @@ size_t qr_solve_smem(int m, int n, int k) {
   return repro_torch::smem_bytes(m, n, k);
 }
 
+// Floats of work buffer one lane of the global form needs (R and y).
+size_t qr_solve_work(int m, int n, int k) {
+  return static_cast<size_t>(m) * n + static_cast<size_t>(m) * k;
+}
+
 // a (batch, m, n) with m >= n, b (batch, m, k) -> x (batch, n, k), float32.
-int qr_solve_f32(const void* a, const void* b, void* x, int batch, int m,
-                 int n, int k, float tiny, void* stream) {
+// work: null for the shared form, else batch * qr_solve_work floats.
+int qr_solve_f32(const void* a, const void* b, void* x, void* work, int batch,
+                 int m, int n, int k, float tiny, void* stream) {
   using namespace repro_torch;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* xf = static_cast<float*>(x);
+  float* wf = static_cast<float*>(work);
+  if (work) {
+    qr_solve_kernel<true>
+        <<<batch, kThreads, sizeof(float) * (m + n + k + 1), s>>>(
+            af, bf, xf, wf, m, n, k, tiny);
+    return cudaGetLastError();
+  }
   const size_t smem = smem_bytes(m, n, k);
-  cudaError_t err = allow_smem(qr_solve_kernel, smem);
+  cudaError_t err = allow_smem(qr_solve_kernel<false>, smem);
   if (err != cudaSuccess) return err;
-  qr_solve_kernel<<<batch, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(x), m, n, k, tiny);
+  qr_solve_kernel<false><<<batch, kThreads, smem, s>>>(af, bf, xf, wf, m, n,
+                                                       k, tiny);
   return cudaGetLastError();
 }
 

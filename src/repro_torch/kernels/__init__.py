@@ -21,11 +21,12 @@ pipelines as named stages; ``SolverMux.submit_dag`` serves them.
 Names, sizes, tolerances, variant order, ``when`` predicates, flops
 models and DAG declarations are the reference's
 (``repro/kernels/__init__.py``), so dispatch, pricing and criticality
-agree with it on every shape.  The ``tiled`` and ``blocked`` large-n
-variants keep their rows and predicates but are not ported yet: their
-entry point is :func:`later_slice`, which raises, and the serving stack
-refuses a bucket that dispatches to them instead of serving it on the
-base kernel.
+agree with it on every shape.  The ``blocked`` variants (n >= 128,
+n % 32 == 0) run the port's K10 and K11.  The HBM-scale ``tiled``
+variants (K12-K14, n >= 512) keep their rows and predicates but are not
+ported yet: their entry point is :func:`later_slice`, which raises, and
+the serving stack refuses a bucket that dispatches to them instead of
+serving it on another kernel.
 
 The registry is built lazily on first access: ``repro_torch.pipelines``
 imports ``repro_torch.kernels.common``, so eager registration here would
@@ -47,8 +48,8 @@ __all__ = ["KernelSpec", "Variant", "Coalescer", "StageSpec", "DagSpec",
 
 def later_slice(*args, **kwargs):
     """Entry point of a registered variant that is not ported yet (the
-    blocked and tiled large-n kernels, K10-K14)."""
-    raise NotImplementedError("K10–K14: later slice")
+    tiled HBM-scale kernels, K12-K14, n >= 512)."""
+    raise NotImplementedError("K12–K14 (tiled, n >= 512): later slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -541,7 +542,7 @@ def _register_all() -> None:
             Variant(name="tiled", fn=later_slice,
                     when=_tiled_when, make_case=_chol_tiled_case,
                     sizes=(512, 1024), flops=_chol_solve_flops),
-            Variant(name="blocked", fn=later_slice,
+            Variant(name="blocked", fn=pp.cholesky_solve_blocked_fused,
                     when=_blocked_when, sizes=(128, 256),
                     flops=_chol_solve_flops))))
 
@@ -569,7 +570,7 @@ def _register_all() -> None:
             Variant(name="tiled", fn=later_slice,
                     when=_tiled_when, make_case=_tall_tiled_case,
                     sizes=(512, 1024), flops=_qr_solve_flops),
-            Variant(name="blocked", fn=later_slice,
+            Variant(name="blocked", fn=pp.qr_solve_blocked_fused,
                     when=_blocked_when, sizes=(128, 256),
                     flops=_qr_solve_flops))))
 

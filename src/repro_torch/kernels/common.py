@@ -5,7 +5,9 @@ Every kernel of this package has two faces in its pipeline module:
 
   * a CUDA C++ kernel under ``src/repro_torch/csrc/`` (one CTA per lane,
     built for ``sm_90a``), launched through a :class:`CudaKernel` — the
-    path every CUDA tensor takes;
+    path every CUDA tensor takes.  A lane's matrices live in shared
+    memory, or, where they do not fit, in a device work buffer the
+    wrapper allocates (:meth:`CudaKernel.work_buffer`);
   * a plain PyTorch version following the reference's per-lane op order,
     which a CPU tensor takes and which tests and ``chip_smoke.py`` hold
     the kernel against.
@@ -33,7 +35,7 @@ import torch
 
 __all__ = ["resolve_device", "on_hopper", "sample_spd", "check_f32",
            "CudaKernel", "KERNELS", "load_library", "build_library",
-           "MAX_SMEM_BYTES"]
+           "MAX_SMEM_BYTES", "data_ptr"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -187,28 +189,45 @@ def load_library() -> ctypes.CDLL:
 
 class CudaKernel:
     """One hand-written kernel of the shared library: its C entry point
-    ``symbol(<pointers and sizes>..., stream) -> cudaError_t`` and its
-    shared-memory query ``<prefix>_smem(dims...) -> size_t``.
+    ``symbol(<pointers and sizes>..., stream) -> cudaError_t``, its
+    shared-memory query ``<prefix>_smem(dims...) -> size_t`` and, for a
+    kernel with a global form (K1-K4), its work-buffer query
+    ``work_symbol(dims...) -> size_t`` (floats per lane).
+
+    A kernel with a global form keeps a lane in shared memory when it
+    fits and, past :data:`MAX_SMEM_BYTES`, in a device work buffer; a
+    launch given that buffer runs the global form.
 
     ``launches`` counts the kernel's launches in this process; it rises
     by one where :meth:`launch` launches the kernel and nowhere else, so
-    a run can show that its path went through the kernel.  ``source`` and
-    ``replaces`` name the CUDA source and the TPU kernel it ports."""
+    a run can show that its path went through the kernel.
+    ``launches_global`` counts those of them that ran the global form.
+    ``source`` and ``replaces`` name the CUDA source and the TPU kernel
+    it ports."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
                  smem_symbol: str, smem_args: int, source: str,
-                 replaces: str):
+                 replaces: str, work_symbol: str | None = None):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self.smem_symbol = smem_symbol
         self.smem_args = smem_args
+        self.work_symbol = work_symbol
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.launches_global = 0
         self._fn = None
         self._smem_fn = None
+        self._work_fn = None
         KERNELS.append(self)
+
+    def _query(self, lib, symbol: str):
+        q = getattr(lib, symbol)
+        q.argtypes = [ctypes.c_int] * self.smem_args
+        q.restype = ctypes.c_size_t
+        return q
 
     def _bind(self):
         if self._fn is None:
@@ -216,28 +235,45 @@ class CudaKernel:
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            smem = getattr(lib, self.smem_symbol)
-            smem.argtypes = [ctypes.c_int] * self.smem_args
-            smem.restype = ctypes.c_size_t
-            self._fn, self._smem_fn = fn, smem
+            self._smem_fn = self._query(lib, self.smem_symbol)
+            if self.work_symbol:
+                self._work_fn = self._query(lib, self.work_symbol)
+            self._fn = fn
         return self._fn
 
     def smem_bytes(self, *dims: int) -> int:
-        """Dynamic shared memory one lane of the kernel needs."""
+        """Dynamic shared memory one lane of the kernel needs (for a
+        kernel with a global form: the shared form)."""
         self._bind()
         return int(self._smem_fn(*dims))
 
-    def launch(self, device: torch.device, smem_dims: tuple, *args) -> None:
-        """Launch on ``device``'s current stream; raise when the lane
-        does not fit in shared memory, the card is not a Hopper, or the
-        launch is refused.  Never synchronises."""
+    def work_buffer(self, device: torch.device, batch: int,
+                    *dims: int) -> torch.Tensor | None:
+        """The device work buffer of the global form for ``batch`` lanes
+        at per-lane ``dims``, or None when the kernel has no global form
+        or the lane fits in :data:`MAX_SMEM_BYTES` (read at each call).
+        Chosen from the shape alone, before the launch."""
+        if self.work_symbol is None \
+                or self.smem_bytes(*dims) <= MAX_SMEM_BYTES:
+            return None
+        return torch.empty(batch * int(self._work_fn(*dims)),
+                           dtype=torch.float32, device=device)
+
+    def launch(self, device: torch.device, smem_dims: tuple, *args,
+               work: torch.Tensor | None = None) -> None:
+        """Launch on ``device``'s current stream; ``work`` is the buffer
+        from :meth:`work_buffer` (its pointer is among ``args``).  Raise
+        when the lane does not fit in shared memory (in the global form
+        only the per-step scratch is shared), the card is not a Hopper,
+        or the launch is refused.  Never synchronises."""
         fn = self._bind()
         if not on_hopper(device):
             raise RuntimeError(
                 f"{self.name}: the kernels are built for sm_90a; "
                 f"{torch.cuda.get_device_name(device)} is not a Hopper card")
+        global_form = self.work_symbol is not None and work is not None
         smem = self.smem_bytes(*smem_dims)
-        if smem > MAX_SMEM_BYTES:
+        if not global_form and smem > MAX_SMEM_BYTES:
             raise ValueError(
                 f"{self.name}: one lane at {smem_dims} needs {smem} bytes "
                 f"of shared memory, more than the {MAX_SMEM_BYTES} a "
@@ -249,6 +285,14 @@ class CudaKernel:
             msg = load_library().repro_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed: {msg}")
         self.launches += 1
+        if global_form:
+            self.launches_global += 1
+
+
+def data_ptr(t: torch.Tensor | None):
+    """A tensor's device pointer for a C entry point; None (NULL) for no
+    tensor."""
+    return None if t is None else t.data_ptr()
 
 
 KERNELS: list[CudaKernel] = []

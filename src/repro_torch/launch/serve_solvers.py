@@ -583,6 +583,8 @@ def main(argv=None) -> dict | None:
                             and j.state == "dropped"),
         "oracle_rel_err": err,
         "launches": snap.total_launches,
+        "dispatch": {name: dict(sorted(st.dispatch_counts.items()))
+                     for name, st in sorted(snap.pipelines.items())},
     }
 
 

@@ -15,6 +15,8 @@ lane, written by hand for Hopper (``src/repro_torch/csrc/``):
   pusch_fft            K7 — per-antenna FFT into stacked re/im planes
   svd_factor           K8 — one-sided Jacobi SVD, packed [U; V; s]
   svd_apply            K9 — V diag(s / (s^2 + lam)) U^T b
+  cholesky_solve_blocked  K10 — K1 by panels + rank-bs SYRK (n >= 128)
+  qr_solve_blocked     K11 — compact-WY least squares (n >= 128)
 
 Each module holds the kernel's wrapper (``*_fused``: the kernel on a
 CUDA tensor, the plain version on a CPU tensor), its plain PyTorch
@@ -22,7 +24,8 @@ version (``*_plain``), and a device-taking public wrapper.  The kernel
 registry (``repro_torch.kernels``) binds them to the serving stack.
 """
 from repro_torch.pipelines.cholesky_solve import (  # noqa: F401
-    cholesky_solve, cholesky_solve_fused, cholesky_solve_plain)
+    cholesky_solve, cholesky_solve_blocked, cholesky_solve_blocked_fused,
+    cholesky_solve_blocked_plain, cholesky_solve_fused, cholesky_solve_plain)
 from repro_torch.pipelines.mmse import (  # noqa: F401
     expand_complex_channel, mmse_equalize, mmse_equalize_fused,
     mmse_equalize_plain, mmse_equalize_split, mmse_equalize_split_fused,
@@ -34,7 +37,8 @@ from repro_torch.pipelines.pusch import (  # noqa: F401
     svd_apply_plain, svd_factor, svd_factor_fused, svd_factor_plain,
     unpack_factors)
 from repro_torch.pipelines.qr_solve import (  # noqa: F401
-    qr_solve, qr_solve_fused, qr_solve_plain)
+    qr_solve, qr_solve_blocked, qr_solve_blocked_fused,
+    qr_solve_blocked_plain, qr_solve_fused, qr_solve_plain)
 
 __all__ = [
     "cholesky_solve", "cholesky_solve_fused", "cholesky_solve_plain",
@@ -42,6 +46,9 @@ __all__ = [
     "mmse_equalize_split", "mmse_equalize_split_fused",
     "mmse_equalize_split_plain", "expand_complex_channel",
     "qr_solve", "qr_solve_fused", "qr_solve_plain",
+    "cholesky_solve_blocked", "cholesky_solve_blocked_fused",
+    "cholesky_solve_blocked_plain",
+    "qr_solve_blocked", "qr_solve_blocked_fused", "qr_solve_blocked_plain",
     "channel_estimate", "channel_estimate_fused", "channel_estimate_plain",
     "pusch_chain", "pusch_chain_fused", "pusch_chain_plain",
     "pusch_fft", "pusch_fft_fused", "pusch_fft_plain",

@@ -5,7 +5,8 @@ single ordered region).
 The win the paper measures is the *chain* factor -> forward-solve ->
 back-solve executed without the matrix round-tripping through memory.
 Here one CUDA block is one lane (``csrc/cholesky_solve.cu``): the matrix
-and right-hand sides stay in shared memory across all three stages, and
+and right-hand sides stay in shared memory across all three stages (in a
+device work buffer for a lane too large for shared memory), and
 the forward substitution is interleaved inside the factor loop — as soon
 as column k of L is finished (the ordered dependence), the divide + AXPY
 of the forward solve for row k consume it.
@@ -26,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (CudaKernel, check_f32,
+from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
 
 # Relative pivot threshold (LAPACK pstrf-style): a pivot below
@@ -124,18 +125,20 @@ def cholesky_solve_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 _KERNEL = CudaKernel(
     "cholesky_solve", "cholesky_solve_f32",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float],
     "cholesky_solve_smem", 2,
     source="src/repro_torch/csrc/cholesky_solve.cu",
     replaces="src/repro/pipelines/cholesky_solve.py:113 "
-             "cholesky_solve_pallas")
+             "cholesky_solve_pallas",
+    work_symbol="cholesky_solve_work")
 
 
 def cholesky_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
                          eps: float = DEFAULT_EPS) -> torch.Tensor:
     """Solve a @ x = b for SPD a. a: (B,N,N), b: (B,N,M) -> x (B,N,M),
     float32 and contiguous.  K1 on a CUDA tensor (one launch, factor and
-    both substitutions fused per lane), its plain version on a CPU one."""
+    both substitutions fused per lane; a lane past shared memory in a
+    device work buffer), its plain version on a CPU one."""
     dev = check_f32("cholesky_solve", a, b)
     bsz, n, n2 = a.shape
     b2, n3, m = b.shape
@@ -146,8 +149,10 @@ def cholesky_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
         return cholesky_solve_plain(a, b, eps=eps)
     x = torch.empty_like(b)
     if bsz:
+        work = _KERNEL.work_buffer(dev, bsz, n, m)
         _KERNEL.launch(dev, (n, m), a.data_ptr(), b.data_ptr(),
-                       x.data_ptr(), bsz, n, m, eps)
+                       x.data_ptr(), data_ptr(work), bsz, n, m, eps,
+                       work=work)
     return x
 
 
@@ -158,3 +163,145 @@ def cholesky_solve(a, b, *, device=None) -> torch.Tensor:
     dev = resolve_device(device)
     return cholesky_solve_fused(torch.as_tensor(a, device=dev).contiguous(),
                                 torch.as_tensor(b, device=dev).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# K10: the right-looking blocked solve (the mid-range large-n variant)
+# ---------------------------------------------------------------------------
+
+def block_size(n: int, bs: int | None = None) -> int:
+    """The panel width of the blocked kernels: 64 when it divides n, else
+    32 (the reference's default); an explicit ``bs`` must divide n."""
+    if bs is None:
+        bs = 64 if n % 64 == 0 else 32
+    if n % bs or n < bs:
+        raise ValueError(f"panel width {bs} does not tile n = {n}")
+    return bs
+
+
+def kernel_block_size(n: int, bs: int | None = None) -> int:
+    """The panel width K10 and K11 take on the card: :func:`block_size`'s,
+    and a multiple of 32, because their tiles cover 32 columns at a time
+    (K10's SYRK warp tiles, K11's reflector pairs and column chunks).
+    The plain versions, like the reference, take any width that tiles
+    n."""
+    bs = block_size(n, bs)
+    if bs % 32:
+        raise ValueError(f"panel width {bs}: the blocked kernels take a "
+                         f"multiple of 32")
+    return bs
+
+
+def panel_factor_forward_step(j: int, c: torch.Tensor, y: torch.Tensor, *,
+                              o: int, rows: torch.Tensor,
+                              cols_bs: torch.Tensor, thresh: torch.Tensor):
+    """One column of the blocked panel factor over every lane, fused with
+    the forward-substitution row it finishes (the blocked analog of
+    :func:`factor_forward_step`).
+
+    c: (B, n, bs) full-height column slab [cols o..o+bs) of the working
+    matrix; y: (B, n, m).  ``g = o + j`` is the global pivot; the rank-1
+    update is confined to the REMAINING slab columns (cols_bs > j) —
+    trailing columns outside the slab get their whole panel's
+    contribution later in one SYRK."""
+    g = o + j
+    bs = c.shape[-1]
+    col = c[:, :, j]
+    pivot = col[:, g]
+    ok = pivot > thresh
+    inv = torch.where(ok, torch.rsqrt(torch.maximum(pivot, thresh)), 0.0)
+    newcol = col * inv[:, None]
+    newcol = torch.where(rows == g,
+                         torch.where(ok, pivot * inv, 1.0)[:, None], newcol)
+    newcol = torch.where(rows >= g, newcol, 0.0)      # implicit mask (F4)
+    live = rows > g
+    # rank-1 update of the remaining panel columns only
+    w = torch.where(cols_bs > j, newcol[:, o:o + bs], 0.0)
+    c = c - torch.where(live[:, None], newcol[:, :, None] * w[:, None, :],
+                        0.0)
+    c[:, :, j] = newcol
+    # fused forward substitution consuming the finished column
+    yg = y[:, g] * inv[:, None]
+    y = y.clone()
+    y[:, g] = yg
+    y = y - torch.where(live[:, None], newcol[:, :, None] * yg[:, None, :],
+                        0.0)
+    return c, y
+
+
+def cholesky_solve_blocked_plain(a: torch.Tensor, b: torch.Tensor, *,
+                                 bs: int | None = None,
+                                 eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """Plain PyTorch version of K10: a (B,N,N), b (B,N,M) -> x (B,N,M) by
+    the blocked algorithm of the reference — per panel, ``bs`` fused
+    factor + forward steps with rank-1 updates inside the panel, then one
+    rank-``bs`` SYRK on the trailing submatrix — so its float grouping is
+    the reference's, not K1's chain."""
+    n = a.shape[-1]
+    bs = block_size(n, bs)
+    rows = torch.arange(n, device=a.device)
+    cols_bs = torch.arange(bs, device=a.device)
+    # symmetrize from the lower triangle: the upper half is never read
+    tril = rows[:, None] >= rows[None, :]
+    a = torch.where(tril, a, a.transpose(-1, -2))
+    thresh = pivot_threshold(a, rows, eps=eps)
+    y = b
+    for o in range(0, n, bs):
+        # ---- panel factor + fused forward substitution (bs columns) ----
+        c = a[:, :, o:o + bs].clone()
+        for j in range(bs):
+            c, y = panel_factor_forward_step(j, c, y, o=o, rows=rows,
+                                             cols_bs=cols_bs, thresh=thresh)
+        a = torch.cat([a[:, :, :o], c, a[:, :, o + bs:]], dim=-1)
+        # ---- trailing SYRK: one rank-bs product for the whole panel ----
+        cm = torch.where(rows[:, None] >= o + bs, c, 0.0)
+        a = a - cm @ cm.transpose(-1, -2)
+    for i in range(n):
+        y = back_substitution_step(i, a, y, rows, n=n)
+    return y
+
+
+_BLOCKED = CudaKernel(
+    "cholesky_solve_blocked", "cholesky_solve_blocked_f32",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float],
+    "cholesky_solve_blocked_smem", 3,
+    source="src/repro_torch/csrc/cholesky_solve_blocked.cu",
+    replaces="src/repro/pipelines/cholesky_solve.py:244 "
+             "cholesky_solve_blocked",
+)
+
+
+def cholesky_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
+                                 bs: int | None = None,
+                                 eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """Blocked SPD solve — the mid-range large-n path (the registry's
+    ``blocked`` variant, n >= 128 with n % 32 == 0).  Same contract as
+    :func:`cholesky_solve_fused`; panels of ``bs`` columns (default: 64
+    when it divides N, else 32).  K10 on a CUDA tensor (one launch, the
+    working matrix in a device work buffer), its plain version on a CPU
+    one."""
+    dev = check_f32("cholesky_solve_blocked", a, b)
+    bsz, n, n2 = a.shape
+    b2, n3, m = b.shape
+    if not (n == n2 == n3 and bsz == b2):
+        raise ValueError(f"cholesky_solve_blocked: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    bs = block_size(n, bs)
+    if dev.type == "cpu":
+        return cholesky_solve_blocked_plain(a, b, bs=bs, eps=eps)
+    bs = kernel_block_size(n, bs)
+    x = torch.empty_like(b)
+    if bsz:
+        work = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
+        _BLOCKED.launch(dev, (n, m, bs), a.data_ptr(), b.data_ptr(),
+                        x.data_ptr(), work.data_ptr(), bsz, n, m, bs, eps)
+    return x
+
+
+def cholesky_solve_blocked(a, b, *, bs: int | None = None,
+                           device=None) -> torch.Tensor:
+    """Public wrapper of the blocked solve (see :func:`cholesky_solve`)."""
+    dev = resolve_device(device)
+    return cholesky_solve_blocked_fused(
+        torch.as_tensor(a, device=dev).contiguous(),
+        torch.as_tensor(b, device=dev).contiguous(), bs=bs)

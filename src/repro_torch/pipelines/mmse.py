@@ -11,7 +11,8 @@ received symbols y (m x k):
 
 which is the real-valued LMMSE estimate x = (H^H H + s I)^{-1} H^H y.
 Nothing leaves shared memory between the four stages
-(``csrc/mmse_equalize.cu``, K2).
+(``csrc/mmse_equalize.cu``, K2); a lane too large for shared memory
+keeps G in a device work buffer and reads H and y in place.
 
 Complex channels are handled two ways:
 
@@ -36,7 +37,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (CudaKernel, check_f32,
+from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
 from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
                                                   cholesky_chain_plain)
@@ -88,17 +89,19 @@ def mmse_equalize_split_plain(hr: torch.Tensor, hi: torch.Tensor,
 
 _KERNEL = CudaKernel(
     "mmse_equalize", "mmse_equalize_f32",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
     "mmse_equalize_smem", 3,
     source="src/repro_torch/csrc/mmse_equalize.cu",
-    replaces="src/repro/pipelines/mmse.py:78 mmse_equalize_pallas")
+    replaces="src/repro/pipelines/mmse.py:78 mmse_equalize_pallas",
+    work_symbol="mmse_equalize_work")
 
 _SPLIT_KERNEL = CudaKernel(
     "mmse_equalize_split", "mmse_equalize_split_f32",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
     "mmse_equalize_split_smem", 3,
     source="src/repro_torch/csrc/mmse_equalize_split.cu",
-    replaces="src/repro/pipelines/mmse.py:148 mmse_equalize_split_pallas")
+    replaces="src/repro/pipelines/mmse.py:148 mmse_equalize_split_pallas",
+    work_symbol="mmse_equalize_split_work")
 
 
 def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
@@ -106,8 +109,8 @@ def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
                         eps: float = DEFAULT_EPS) -> torch.Tensor:
     """h: (B,M,N) per-subcarrier channels, y: (B,M,K) observations
     -> x: (B,N,K) equalized symbols; float32, contiguous.  K2 on a CUDA
-    tensor (one launch for the whole chain), its plain version on a CPU
-    one."""
+    tensor (one launch for the whole chain; a lane past shared memory in
+    a device work buffer), its plain version on a CPU one."""
     dev = check_f32("mmse_equalize", h, y)
     bsz, m, n = h.shape
     b2, m2, k = y.shape
@@ -118,8 +121,10 @@ def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
         return mmse_equalize_plain(h, y, sigma2=sigma2, eps=eps)
     x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
     if bsz:
+        work = _KERNEL.work_buffer(dev, bsz, m, n, k)
         _KERNEL.launch(dev, (m, n, k), h.data_ptr(), y.data_ptr(),
-                       x.data_ptr(), bsz, m, n, k, sigma2, eps)
+                       x.data_ptr(), data_ptr(work), bsz, m, n, k, sigma2,
+                       eps, work=work)
     return x
 
 
@@ -132,7 +137,8 @@ def mmse_equalize_split_fused(hr: torch.Tensor, hi: torch.Tensor,
     hr/hi: (B,M,N) channel planes, yr/yi: (B,M,K) observations ->
     x: (B,2N,K) stacked [Re x; Im x] (the real-expansion output layout,
     so both paths answer the same complex problem identically); float32,
-    contiguous.  K3 on a CUDA tensor, its plain version on a CPU one."""
+    contiguous.  K3 on a CUDA tensor (a lane past shared memory in a
+    device work buffer), its plain version on a CPU one."""
     dev = check_f32("mmse_equalize_split", hr, hi, yr, yi)
     bsz, m, n = hr.shape
     b2, m2, k = yr.shape
@@ -146,9 +152,11 @@ def mmse_equalize_split_fused(hr: torch.Tensor, hi: torch.Tensor,
                                          eps=eps)
     x = torch.empty((bsz, 2 * n, k), dtype=torch.float32, device=dev)
     if bsz:
+        work = _SPLIT_KERNEL.work_buffer(dev, bsz, m, n, k)
         _SPLIT_KERNEL.launch(dev, (m, n, k), hr.data_ptr(), hi.data_ptr(),
                              yr.data_ptr(), yi.data_ptr(), x.data_ptr(),
-                             bsz, m, n, k, sigma2, eps)
+                             data_ptr(work), bsz, m, n, k, sigma2, eps,
+                             work=work)
     return x
 
 

@@ -8,7 +8,8 @@ iteration (two critical regions sharing one produced value: the paper's
 inductive-consumption ``tau`` edge).  After min(m-1, n) reflections the
 rhs holds Q^T b, and the back substitution on the n x n upper triangle
 of R runs in the same lane, everything in shared memory
-(``csrc/qr_solve.cu``, K4).
+(``csrc/qr_solve.cu``, K4), or in a device work buffer for a lane too
+large for it.
 
 Pivot guard: a degenerate (zero-norm) column takes tau = 0 (identity
 reflector) and the back substitution zeroes a component whose pivot is
@@ -25,8 +26,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (CudaKernel, check_f32,
+from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
+from repro_torch.pipelines.cholesky_solve import (block_size,
+                                                  kernel_block_size)
 
 DEFAULT_TINY = 1e-20
 
@@ -103,17 +106,19 @@ def qr_solve_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 _KERNEL = CudaKernel(
     "qr_solve", "qr_solve_f32",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float],
     "qr_solve_smem", 3,
     source="src/repro_torch/csrc/qr_solve.cu",
-    replaces="src/repro/pipelines/qr_solve.py:100 qr_solve_pallas")
+    replaces="src/repro/pipelines/qr_solve.py:100 qr_solve_pallas",
+    work_symbol="qr_solve_work")
 
 
 def qr_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
                    tiny: float = DEFAULT_TINY) -> torch.Tensor:
     """Least squares min ||a @ x - b||. a: (B,M,N) with M >= N,
     b: (B,M,K) -> x: (B,N,K); float32, contiguous.  K4 on a CUDA tensor
-    (one launch, Q never formed), its plain version on a CPU one."""
+    (one launch, Q never formed; a lane past shared memory in a device
+    work buffer), its plain version on a CPU one."""
     dev = check_f32("qr_solve", a, b)
     bsz, m, n = a.shape
     b2, m2, k = b.shape
@@ -124,8 +129,10 @@ def qr_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
         return qr_solve_plain(a, b, tiny=tiny)
     x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
     if bsz:
+        work = _KERNEL.work_buffer(dev, bsz, m, n, k)
         _KERNEL.launch(dev, (m, n, k), a.data_ptr(), b.data_ptr(),
-                       x.data_ptr(), bsz, m, n, k, tiny)
+                       x.data_ptr(), data_ptr(work), bsz, m, n, k, tiny,
+                       work=work)
     return x
 
 
@@ -136,3 +143,127 @@ def qr_solve(a, b, *, device=None) -> torch.Tensor:
     dev = resolve_device(device)
     return qr_solve_fused(torch.as_tensor(a, device=dev).contiguous(),
                           torch.as_tensor(b, device=dev).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# K11: blocked (compact-WY) least squares (the mid-range large-n variant)
+# ---------------------------------------------------------------------------
+
+def qr_panel_reflect_step(j: int, pan: torch.Tensor, v_acc: torch.Tensor,
+                          tau_acc: torch.Tensor, *, o: int,
+                          rows: torch.Tensor, tiny: float):
+    """Reflector ``g = o + j`` over every lane, built from and applied to
+    the panel (B, m, bs) only; (v, tau) accumulated into v_acc (B, m, bs)
+    and tau_acc (B, bs) for the compact-WY block apply."""
+    g = o + j
+    x = torch.where(rows >= g, pan[:, :, j], 0.0)     # masked column (F4)
+    xk = x[:, g]
+    norm = torch.sqrt(_sum_rows(x * x))
+    alpha = torch.where(xk >= 0, -norm, norm)
+    v = x - alpha[:, None] * (rows == g).to(pan.dtype)
+    vnorm2 = torch.clamp_min(_sum_rows(v * v), tiny)
+    tau = torch.where(norm < tiny, 0.0, 2.0 / vnorm2)  # degenerate: skip
+    w = tau[:, None] * _sum_rows(v[:, :, None] * pan)
+    pan = pan - v[:, :, None] * w[:, None, :]
+    v_acc = v_acc.clone()
+    v_acc[:, :, j] = v
+    tau_acc = tau_acc.clone()
+    tau_acc[:, j] = tau
+    return pan, v_acc, tau_acc
+
+
+def wy_t(vt_v: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """The compact-WY ``T`` (B, bs, bs) of one panel (LAPACK larft,
+    forward columnwise): T[:j, j] = -tau_j T[:j, :j] (V^T v_j)[:j],
+    T[j, j] = tau_j."""
+    bsz, bs = taus.shape
+    cols = torch.arange(bs, device=taus.device)
+    t = torch.zeros((bsz, bs, bs), dtype=taus.dtype, device=taus.device)
+    for j in range(bs):
+        z = torch.where(cols < j, vt_v[:, :, j], 0.0)
+        tau_j = taus[:, j]
+        tcol = -tau_j[:, None] * (t @ z[:, :, None])[:, :, 0]
+        tcol = torch.where(cols < j, tcol, 0.0)
+        tcol = tcol + tau_j[:, None] * (cols == j).to(t.dtype)
+        t = t.clone()
+        t[:, :, j] = tcol
+    return t
+
+
+def qr_solve_blocked_plain(a: torch.Tensor, b: torch.Tensor, *,
+                           bs: int | None = None,
+                           tiny: float = DEFAULT_TINY) -> torch.Tensor:
+    """Plain PyTorch version of K11: a (B,M,N), b (B,M,K) -> x (B,N,K) by
+    the reference's compact-WY algorithm — per panel, ``bs`` reflectors
+    on the panel only, T from V^T V, and the block reflector
+    I - V T^T V^T on the trailing columns and the whole rhs."""
+    m, n = a.shape[-2:]
+    bs = block_size(n, bs)
+    rows = torch.arange(m, device=a.device)
+    cols_n = torch.arange(n, device=a.device)
+    bsz = a.shape[0]
+    r, y = a, b
+    for o in range(0, n, bs):
+        # ---- panel factor: bs reflectors applied panel-locally ----
+        pan = r[:, :, o:o + bs]
+        v = torch.zeros((bsz, m, bs), dtype=a.dtype, device=a.device)
+        taus = torch.zeros((bsz, bs), dtype=a.dtype, device=a.device)
+        for j in range(bs):
+            pan, v, taus = qr_panel_reflect_step(j, pan, v, taus, o=o,
+                                                 rows=rows, tiny=tiny)
+        r = torch.cat([r[:, :, :o], pan, r[:, :, o + bs:]], dim=-1)
+        # ---- T build: one V^T V gram + bs short column steps ----
+        vt = v.transpose(-1, -2)
+        t = wy_t(vt @ v, taus)
+        tt = t.transpose(-1, -2)
+        # ---- block apply Q_p^T = I - V T^T V^T ----
+        upd = v @ (tt @ (vt @ r))
+        r = r - torch.where(cols_n >= o + bs, upd, 0.0)
+        y = y - v @ (tt @ (vt @ y))
+    return back_substitute_r(r, y, n=n, tiny=tiny)
+
+
+_BLOCKED = CudaKernel(
+    "qr_solve_blocked", "qr_solve_blocked_f32",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float],
+    "qr_solve_blocked_smem", 4,
+    source="src/repro_torch/csrc/qr_solve_blocked.cu",
+    replaces="src/repro/pipelines/qr_solve.py:203 qr_solve_blocked",
+)
+
+
+def qr_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
+                           bs: int | None = None,
+                           tiny: float = DEFAULT_TINY) -> torch.Tensor:
+    """Blocked (compact-WY) least squares — the mid-range large-n path
+    (the registry's ``blocked`` variant, n >= 128 with n % 32 == 0).
+    Same contract as :func:`qr_solve_fused`; panels of ``bs`` columns
+    (default: 64 when it divides N, else 32).  K11 on a CUDA tensor (one
+    launch, R in a device work buffer), its plain version on a CPU one."""
+    dev = check_f32("qr_solve_blocked", a, b)
+    bsz, m, n = a.shape
+    b2, m2, k = b.shape
+    if not (m == m2 and bsz == b2 and m >= n):
+        raise ValueError(f"qr_solve_blocked: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    bs = block_size(n, bs)
+    if dev.type == "cpu":
+        return qr_solve_blocked_plain(a, b, bs=bs, tiny=tiny)
+    bs = kernel_block_size(n, bs)
+    x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
+    if bsz:
+        work = torch.empty((bsz, m, n), dtype=torch.float32, device=dev)
+        _BLOCKED.launch(dev, (m, n, k, bs), a.data_ptr(), b.data_ptr(),
+                        x.data_ptr(), work.data_ptr(), bsz, m, n, k, bs,
+                        tiny)
+    return x
+
+
+def qr_solve_blocked(a, b, *, bs: int | None = None,
+                     device=None) -> torch.Tensor:
+    """Public wrapper of the blocked least squares (see
+    :func:`qr_solve`)."""
+    dev = resolve_device(device)
+    return qr_solve_blocked_fused(
+        torch.as_tensor(a, device=dev).contiguous(),
+        torch.as_tensor(b, device=dev).contiguous(), bs=bs)

@@ -10,8 +10,8 @@ that interleaved stream and serves it with the paper's lane model:
     ``KernelSpec.dispatch_key`` to a variant (one options-bound entry
     point per pipeline × variant) — 4-plane MMSE buckets serve from the
     split-complex kernel, without the caller choosing anything.  A
-    bucket whose shapes dispatch to a variant not ported yet (blocked or
-    tiled, n >= 128) is refused at :meth:`SolverMux.submit`.
+    bucket whose shapes dispatch to a variant not ported yet (tiled,
+    K12-K14, n >= 512) is refused at :meth:`SolverMux.submit`.
   * **shape buckets** — within a pool, jobs are bucketed by their
     per-arg (shape, dtype) key; only bucket-mates share a lane group
     (unless the overload policy coalesces — below).

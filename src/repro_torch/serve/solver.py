@@ -96,9 +96,9 @@ class VariantDispatcher:
     ``functools.partial``; PyTorch runs eagerly, so there is no
     per-bucket compile to cache beyond that binding.
 
-    A bucket that dispatches to a variant not ported yet (the blocked and
-    tiled large-n kernels) raises ``NotImplementedError`` here instead of
-    being served on another kernel.
+    A bucket that dispatches to a variant not ported yet (the tiled
+    HBM-scale kernels K12-K14, n >= 512) raises ``NotImplementedError``
+    here instead of being served on another kernel.
 
     ``cost_model`` (a :class:`repro_torch.serve.cost.CostModel`, lazily
     defaulted) makes the dispatcher the one place a bucket flush gets
@@ -181,8 +181,8 @@ class VariantDispatcher:
         if variant.fn is K.later_slice:
             raise NotImplementedError(
                 f"{self.spec.name!r} bucket {[list(s) for s, _ in key]} "
-                f"dispatches to the {variant.name!r} variant: K10–K14: "
-                f"later slice")
+                f"dispatches to the {variant.name!r} variant: K12–K14 "
+                f"(tiled, n >= 512): later slice")
         fn = self._fns.get(variant.name)
         if fn is None:
             fn = functools.partial(variant.fn, **self.options)

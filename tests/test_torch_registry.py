@@ -131,17 +131,17 @@ def test_run_oracle_lane_routes_split_jobs():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("name,n", [("cholesky_solve", 128),
-                                    ("qr_solve", 128),
+@pytest.mark.parametrize("name,n", [("cholesky_solve", 512),
+                                    ("qr_solve", 512),
                                     ("mmse_equalize", 512)])
 def test_unported_variants_are_refused_not_served(name, n):
-    """A shape the reference sends to blocked/tiled is never served
-    quietly on the base kernel: the entry point raises and the mux
-    refuses the job at submit."""
+    """A shape the reference sends to the tiled HBM-scale kernels
+    (K12-K14) is never served quietly on another kernel: the entry point
+    raises and the mux refuses the job at submit."""
     spec = TK.get(name)
     m = n if name == "cholesky_solve" else n + 4
     v = spec.dispatch_key(((m, n), (m, 2)), ("float32", "float32"))
-    assert v.name in ("blocked", "tiled")
+    assert v.name == "tiled"
     with pytest.raises(NotImplementedError, match="later slice"):
         v.fn()
     mux = SolverMux(lanes=2, clock=ManualClock(), device="cpu")
