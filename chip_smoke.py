@@ -9,7 +9,7 @@ Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (nvidia-smi), TF32 off;
   2. build   — every kernel in src/repro_torch/csrc built from source;
-  3. kernels — K1-K11 held against their plain PyTorch versions and the
+  3. kernels — K1-K14 held against their plain PyTorch versions and the
                oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
                PRBs x 12 subcarriers, 3GPP TS 38.101-1 Table 5.3.2-1;
@@ -20,9 +20,15 @@ Phases, each fatal on failure:
                reconstruction, its factors being sign/order ambiguous.
                The mid-range path: the blocked K10/K11 at n = 128 and
                256 with both panel widths at B = 3276, and K1-K4 on lanes
-               past shared memory (their global form); where both forms
+               past shared memory (their global form, K3 also at n =
+               512 as the HBM-scale mix sends it); where both forms
                fit, the shared form against the plain version and the
-               global form equal to it bit for bit;
+               global form equal to it bit for bit; K10/K11 at panel
+               widths that are not multiples of 32 (bs = 16 at n = 128,
+               48 at n = 192).  The HBM-scale path: the tiled K12-K14 at
+               n = 512 (B = 3276) and n = 1024 (B = 264, a carrier's
+               width at that size would not fit the card's memory beside
+               its plain version) at bs = 128, and their guard cases;
   4. serve   — the main paths, each with every kernel's launch count
                reset before and read after: the TTI slot mix
                (``repro_torch.launch.serve_solvers.main`` on two mixes and
@@ -32,12 +38,17 @@ Phases, each fatal on failure:
                with 32 lanes over 8 ticks, and the committed PUSCH trace
                replayed to its golden file) and the mid-range slot mix
                (``main --sizes 128,256``, with and without the overload
-               policy: K10, K11 and the global forms of K2 and K3);
+               policy: K10, K11 and the global forms of K2 and K3) and
+               the HBM-scale slot mix (``main --sizes 512 --slots 4
+               --lanes 32``, with and without the policy: K12, K13, K14
+               and the global form of K3);
   5. times   — each kernel at B = 3276 timed with CUDA events (cold L2)
                beside its bound, its plain version and, where one PyTorch
                call computes the same function, that call; the blocked
-               kernels and the global forms at n = 128 and 256, and
-               K2's shared form at n = 128.
+               kernels and the global forms at n = 128 and 256, K2's
+               shared form at n = 128, and the tiled kernels at n = 512
+               (B = 3276) and 1024 (B = 264).  The median of 30 calls, or
+               of 5 where one call passes 250 ms (``reps`` on the row).
 
 The second-to-last lines are the ``{"kernels": [...]}`` JSON line and the
 card's name and power limit; the last line is
@@ -59,13 +70,23 @@ sys.path.insert(0, str(ROOT / "src"))
 LANES = 3276                 # one 100 MHz carrier at 30 kHz SCS
 SLOT_SIZES = (8, 16, 32)
 MID_SIZES = (128, 256)       # the blocked registry sizes (n % 32 == 0)
+# (n, lanes): the tiled registry sizes; at n = 1024 a lane is 4 MB of A
+# and 4 MB of work buffer, and the plain version's temporaries several
+# times that, so 264 lanes (two CTAs on each of the 132 SMs)
+TILED_CASES = ((512, LANES), (1024, 264))
+TILED_BS = 128
+# (kernel, n, bs): K10/K11 at panel widths that are not multiples of 32
+ODD_WIDTHS = ((128, 16), (192, 48))
+SLOW_MS = 250.0              # past this a timing row takes 5 calls, not 30
 CHECK_LANES = 512            # lanes of the past-shared-memory checks
 # (kernel, n, m or None for n + 4): K1-K4 lanes past shared memory, which
-# run the global form -- K2 and K3 as the mid-range mix sends them, K1
-# and K4 at sizes that are not multiples of 32 (so not blocked)
+# run the global form -- K2 and K3 as the mid-range mix sends them, K3 at
+# n = 512 (a 2n = 1024 system) as the HBM-scale mix sends it, K1 and K4
+# at sizes that are not multiples of 32 (so not blocked)
 GLOBAL_CASES = (("cholesky_solve", 250, None), ("mmse_equalize", 256, None),
                 ("mmse_equalize_split", 128, None),
-                ("mmse_equalize_split", 256, None), ("qr_solve", 250, 254))
+                ("mmse_equalize_split", 256, None),
+                ("mmse_equalize_split", 512, None), ("qr_solve", 250, 254))
 NFFT = 64                    # the PUSCH DAG's OFDM size
 NFFT_MAX = 1024              # the largest registered FFT size
 SWEEPS = 14                  # Jacobi sweeps of the served svd_factor stage
@@ -74,25 +95,36 @@ PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
 RTOL = 1e-4                  # the solver specs' rtol
 SVD_RTOL = 4.0 * (2.0 ** -23) ** 0.5   # 4 sqrt(eps_f32), the SVD specs'
 RTOLS = {"fft": 1e-3, "pusch_fft": 1e-3, "svd": SVD_RTOL,
-         "svd_factor": SVD_RTOL, "qr_solve_blocked": 1e-3}
+         "svd_factor": SVD_RTOL, "qr_solve_blocked": 1e-3,
+         "qr_solve_tiled": 2e-3, "mmse_equalize_tiled": 2e-3}
 # At n >= 128 the reference holds blocked Cholesky to 1e-3 against the
 # oracle and blocked QR to 1e-3 (tests/test_variants.py).  The MMSE Gram
 # H^T H + 0.1 I at m = n + 4 has condition ~9.4e3 at n = 256, and fp32
 # solves differ from float64 by ~1.5e-4 there, so MMSE at n >= 128 is
 # held to 1e-3, the serving spot check's tolerance.
 MID_RTOL = 1e-3
+# At n >= 512 the reference holds every tiled pipeline to 2e-3 against
+# the oracle (tests/test_tiled.py::test_tiled_matches_oracle_large); the
+# tiled checks also print each answer's distance to a float64 solve.
+TILED_RTOL = 2e-3
 ORACLE_RTOLS = {"cholesky_solve_blocked": MID_RTOL,
-                "qr_solve_blocked": MID_RTOL}
+                "qr_solve_blocked": MID_RTOL,
+                "cholesky_solve_tiled": TILED_RTOL,
+                "qr_solve_tiled": TILED_RTOL,
+                "mmse_equalize_tiled": TILED_RTOL}
 # check key -> the kernel it runs (stage adapters run a kernel of their own)
 KERNEL_OF = {"pusch_fft": "fft", "svd_factor": "svd"}
 # (check key, registry spec, variant): the registry cases each kernel is
-# held to; the tiled variants (K12-K14) are not ported yet
+# held to
 REGISTRY_CHECKS = (
     ("svd", "svd", "base"), ("fft", "fft", "base"),
     ("cholesky_solve", "cholesky_solve", "base"),
     ("cholesky_solve_blocked", "cholesky_solve", "blocked"),
     ("qr_solve", "qr_solve", "base"),
     ("qr_solve_blocked", "qr_solve", "blocked"),
+    ("cholesky_solve_tiled", "cholesky_solve", "tiled"),
+    ("qr_solve_tiled", "qr_solve", "tiled"),
+    ("mmse_equalize_tiled", "mmse_equalize", "tiled"),
     ("mmse_equalize", "mmse_equalize", "base"),
     ("mmse_equalize_split", "mmse_equalize", "split_complex"),
     ("pusch_fft", "pusch_fft", "base"),
@@ -116,6 +148,8 @@ MID_TIMES = {"cholesky_solve": ((250, None, "global"),),
                                      (256, None, "global")),
              "qr_solve": ((250, 254, "global"),),
              "qr_solve_blocked": ((128, None, None), (256, None, None))}
+TILED_TIMES = ("cholesky_solve_tiled", "qr_solve_tiled",
+               "mmse_equalize_tiled")
 
 
 @contextlib.contextmanager
@@ -215,6 +249,9 @@ def main():
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_fused,
              "qr_solve_blocked": pp.qr_solve_blocked_fused,
+             "cholesky_solve_tiled": pp.cholesky_solve_tiled_fused,
+             "qr_solve_tiled": pp.qr_solve_tiled_fused,
+             "mmse_equalize_tiled": pp.mmse_equalize_tiled_fused,
              "mmse_equalize": pp.mmse_equalize_fused,
              "mmse_equalize_split": pp.mmse_equalize_split_fused,
              "qr_solve": pp.qr_solve_fused,
@@ -229,6 +266,9 @@ def main():
     plain = {"cholesky_solve": pp.cholesky_solve_plain,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_plain,
              "qr_solve_blocked": pp.qr_solve_blocked_plain,
+             "cholesky_solve_tiled": pp.cholesky_solve_tiled_plain,
+             "qr_solve_tiled": pp.qr_solve_tiled_plain,
+             "mmse_equalize_tiled": pp.mmse_equalize_tiled_plain,
              "mmse_equalize": pp.mmse_equalize_plain,
              "mmse_equalize_split": pp.mmse_equalize_split_plain,
              "qr_solve": pp.qr_solve_plain,
@@ -243,6 +283,9 @@ def main():
     oracle = {"cholesky_solve": ref.cholesky_solve,
               "cholesky_solve_blocked": ref.cholesky_solve,
               "qr_solve_blocked": ref.qr_solve,
+              "cholesky_solve_tiled": ref.cholesky_solve,
+              "qr_solve_tiled": ref.qr_solve,
+              "mmse_equalize_tiled": ref.mmse_equalize,
               "mmse_equalize": ref.mmse_equalize,
               "mmse_equalize_split": ref.mmse_equalize_split,
               "qr_solve": ref.qr_solve,
@@ -260,7 +303,8 @@ def main():
 
     def check(key, args, label, oracle_args=None, rtol=None, **kw):
         """Kernel vs plain version (same card inputs, both given ``kw``)
-        vs oracle (on ``oracle_args``, default the same inputs)."""
+        vs oracle (on ``oracle_args``, default the same inputs).  Returns
+        the kernel's and the plain version's answers."""
         rtol = rtol or RTOLS.get(key, RTOL)
         rtol_o = max(rtol, ORACLE_RTOLS.get(key, rtol))
         got = fused[key](*args, **kw)
@@ -277,7 +321,7 @@ def main():
               f"{rtol_o:.3g}) {status}", flush=True)
         if not (ok and ok_o):
             failures.append(f"{key} {label}")
-        return got
+        return got, want
 
     def rand(rng, *shape):
         return torch.from_numpy(
@@ -293,8 +337,9 @@ def main():
         return torch.randn(shape, generator=gen, device=dev)
 
     def mid_case(key, b, n, m=None):
-        """Per-lane shapes of the mid-range slot mix (build_slot_jobs at
-        n = 128..511: m = n + 4, k = 2, k = 1 for QR), made on the card;
+        """Per-lane shapes of the mid-range and HBM-scale slot mixes
+        (build_slot_jobs at n >= 128: m = n + 4, k = 2, k = 1 for QR),
+        made on the card;
         Cholesky systems are X X^T + n I as sample_spd makes them."""
         m = n + 4 if m is None else m
         if key.startswith("cholesky_solve"):
@@ -304,11 +349,11 @@ def main():
             return a, grand(b, n, 2)
         if key.startswith("qr_solve"):
             return grand(b, m, n), grand(b, m, 1)
-        if key == "mmse_equalize":
-            return grand(b, m, n), grand(b, m, 2)
         if key == "mmse_equalize_split":
             return grand(b, m, n), grand(b, m, n), grand(b, m, 2), \
                 grand(b, m, 2)
+        if key.startswith("mmse_equalize"):
+            return grand(b, m, n), grand(b, m, 2)
         raise KeyError(key)
 
     def slot_case(key, rng, b, n):
@@ -362,8 +407,8 @@ def main():
     poisoned = a.clone()
     iu = torch.triu_indices(16, 16, offset=1)
     poisoned[:, iu[0], iu[1]] = float("nan")
-    got = check("cholesky_solve", (poisoned, rhs), "poisoned upper",
-                oracle_args=(a, rhs))
+    got, _ = check("cholesky_solve", (poisoned, rhs), "poisoned upper",
+                   oracle_args=(a, rhs))
     if not torch.equal(got, clean):
         failures.append("cholesky_solve: upper-triangle NaN leaked")
     v = rand(rng, 2, 16, 2)
@@ -435,7 +480,8 @@ def main():
         before = k.launches_global
         check(key, mid_case(key, CHECK_LANES, n, m),
               f"global B={CHECK_LANES} n={n}",
-              rtol=None if key == "cholesky_solve" else MID_RTOL)
+              rtol=None if key == "cholesky_solve"
+              else MID_RTOL if n < 512 else TILED_RTOL)
         if k.launches_global != before + 1:
             failures.append(f"{key} n={n}: the global form did not run")
     # sizes where both forms fit: the shared form against the plain
@@ -445,8 +491,8 @@ def main():
                    ("mmse_equalize_split", 96), ("qr_solve", 128)):
         args = mid_case(key, CHECK_LANES, n)
         before = kern[key].launches_global
-        shared = check(key, args, f"shared B={CHECK_LANES} n={n}",
-                       rtol=None if key == "cholesky_solve" else MID_RTOL)
+        shared, _ = check(key, args, f"shared B={CHECK_LANES} n={n}",
+                          rtol=None if key == "cholesky_solve" else MID_RTOL)
         with global_form(common):
             glob = fused[key](*args)
         if kern[key].launches_global != before + 1:
@@ -462,8 +508,8 @@ def main():
     poisoned = a.clone()
     iu = torch.triu_indices(128, 128, offset=1)
     poisoned[:, iu[0], iu[1]] = float("nan")
-    got = check("cholesky_solve_blocked", (poisoned, rhs),
-                "poisoned upper n=128", oracle_args=(a, rhs), bs=32)
+    got, _ = check("cholesky_solve_blocked", (poisoned, rhs),
+                   "poisoned upper n=128", oracle_args=(a, rhs), bs=32)
     if not torch.equal(got, clean):
         failures.append("cholesky_solve_blocked: upper-triangle NaN leaked")
     v = grand(1, 128, 5)
@@ -502,6 +548,86 @@ def main():
             guards.append((f"{key} filler lane n={n}", out))
             if not torch.equal(out, torch.zeros_like(out)):
                 failures.append(f"{key}: filler lane n={n} not exactly 0")
+
+    # ---- the HBM-scale path: K12-K14, and K10/K11 at any panel width ----
+    print("HBM-scale path (n >= 512):", flush=True)
+    for key in ("cholesky_solve_blocked", "qr_solve_blocked"):
+        for n, bs in ODD_WIDTHS:
+            check(key, mid_case(key, LANES, n), f"B={LANES} n={n} bs={bs}",
+                  bs=bs)
+
+    def solve64(key, args):
+        """The float64 answer of a tiled check's first 64 lanes: the
+        normal equations in float64 for QR (its 516 x 512 Gaussian
+        matrices have condition ~500)."""
+        a, b = (t[:64].double() for t in args)
+        if key == "cholesky_solve_tiled":
+            return torch.linalg.solve(a, b)
+        at = a.transpose(-1, -2)
+        g = at @ a
+        if key == "mmse_equalize_tiled":
+            g = g + 0.1 * torch.eye(g.shape[-1], dtype=g.dtype, device=dev)
+        return torch.linalg.solve(g, at @ b)
+
+    for key in TILED_TIMES:
+        for n, b in TILED_CASES:
+            args = mid_case(key, b, n)
+            got, want = check(key, args, f"B={b} n={n} bs={TILED_BS}",
+                              bs=TILED_BS)
+            x64 = solve64(key, args)
+            scale = float(x64.abs().max())
+            print(f"  {key:<22} B={b} n={n}: |kernel-f64|/max|x| "
+                  f"{float((got[:64] - x64).abs().max()) / scale:.3e}  "
+                  f"|plain-f64|/max|x| "
+                  f"{float((want[:64] - x64).abs().max()) / scale:.3e}"
+                  f"  (first 64 lanes)", flush=True)
+            del args, got, want, x64
+    a, rhs = mid_case("cholesky_solve", 2, 512)
+    clean = pp.cholesky_solve_tiled_fused(a, rhs)
+    poisoned = a.clone()
+    iu = torch.triu_indices(512, 512, offset=1)
+    poisoned[:, iu[0], iu[1]] = float("nan")
+    got, _ = check("cholesky_solve_tiled", (poisoned, rhs), "poisoned "
+                   "upper n=512", oracle_args=(a, rhs))
+    if not torch.equal(got, clean):
+        failures.append("cholesky_solve_tiled: upper-triangle NaN leaked")
+    for rank in (40, 100, 129):           # ends in tiles 1, 2, 3 at bs = 64
+        x = grand(1, 256, rank)
+        sys_a = (x @ x.transpose(-1, -2)).contiguous()
+        b2 = (sys_a @ grand(1, 256, 2)).contiguous()
+        out = pp.cholesky_solve_tiled_fused(sys_a, b2, bs=64)
+        guards.append((f"cholesky_solve_tiled rank {rank} of 256", out))
+        resid = float((sys_a @ out - b2).abs().max() / b2.abs().max())
+        print(f"  cholesky_solve_tiled   rank {rank} of 256 (bs=64): "
+              f"|A x - b| / max|b| {resid:.3e}", flush=True)
+        if not resid < 1e-3:
+            failures.append(f"cholesky_solve_tiled rank {rank}: residual "
+                            f"{resid:.3e}")
+    for col in (10, 70, 130):             # panels 0, 1, 2 at bs = 64
+        qa, qb = mid_case("qr_solve", 1, 192, 200)
+        qa[:, :, col] = 0.0
+        qb = grand(1, 200, 2)
+        xq = pp.qr_solve_tiled_fused(qa, qb, bs=64)
+        ok, err = close(xq, pp.qr_solve_tiled_plain(qa, qb, bs=64),
+                        TILED_RTOL)
+        print(f"  qr_solve_tiled         zero column {col} (bs=64): "
+              f"|kernel-plain| {err:.3e} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        guards.append((f"qr_solve_tiled zero column {col}", xq))
+        if not ok or not torch.equal(xq[:, col],
+                                     torch.zeros_like(xq[:, col])):
+            failures.append(f"qr_solve_tiled zero column {col}")
+    for name, key in (("cholesky_solve", "cholesky_solve_tiled"),
+                      ("qr_solve", "qr_solve_tiled"),
+                      ("mmse_equalize", "mmse_equalize_tiled")):
+        spec = K.get(name)
+        case = mid_case(key, 1, 512)
+        lane = spec.filler(tuple(tuple(t.shape[1:]) for t in case),
+                           (np.dtype("float32"),) * 2)
+        out = fused[key](*(torch.from_numpy(t)[None].to(dev) for t in lane))
+        guards.append((f"{key} filler lane n=512", out))
+        if not torch.equal(out, torch.zeros_like(out)):
+            failures.append(f"{key}: filler lane n=512 not exactly 0")
 
     for label, out in guards:
         finite = bool(torch.isfinite(out).all())
@@ -610,30 +736,49 @@ def main():
                    "mmse_equalize", "mmse_equalize_split"),
                   ("mmse_equalize", "mmse_equalize_split"))
 
+    reset_launches()
+    for argv in (["--slots", "4", "--lanes", "32", "--sizes", "512"],
+                 ["--slots", "4", "--lanes", "32", "--sizes", "512",
+                  "--policy"]):
+        print(f"serve_solvers {' '.join(argv)}", flush=True)
+        summary = S_.main(argv)
+        print(f"  summary {json.dumps(summary)}")
+        if summary is None or summary["hard_dropped"] != 0 \
+                or not summary["oracle_rel_err"] < TILED_RTOL \
+                or summary["done"] != summary["jobs"]:
+            fail(f"serve {argv}: {summary}")
+    read_launches("HBM-scale slot mix",
+                  ("cholesky_solve_tiled", "qr_solve_tiled",
+                   "mmse_equalize_tiled", "mmse_equalize_split"),
+                  ("mmse_equalize_split",))
+
     # ---------------- 5. times ----------------
     flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
 
-    def time_ms(fn, reps):
-        """Median device time of fn() per call, L2 flushed before each.
-        The card first spins for ~0.5 ms so that the host has enqueued
-        the call before the start event fires: the host's launch path
-        (argument checks, ctypes) is not counted as device time.  Returns
-        (median, slowest): one slow call moves a mean by its whole excess
-        over the number of calls, the median not at all."""
+    def timed_call(fn):
+        """Device time of one fn() in ms, L2 flushed before it.  The card
+        first spins for ~0.5 ms so that the host has enqueued the call
+        before the start event fires: the host's launch path (argument
+        checks, ctypes) is not counted as device time."""
+        torch.cuda._sleep(1_000_000)
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            torch.cuda._sleep(1_000_000)
-            flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times), max(times)
+        return start.elapsed_time(end)
+
+    def time_ms(fn, reps):
+        """Median device time of fn() per call over ``reps`` calls after a
+        warm-up, or over 5 where the warm-up passes SLOW_MS.  Returns
+        (median, slowest, calls): one slow call moves a mean by its whole
+        excess over the number of calls, the median not at all."""
+        if timed_call(fn) > SLOW_MS:
+            reps = min(reps, 5)
+        times = [timed_call(fn) for _ in range(reps)]
+        return statistics.median(times), max(times), reps
 
     def work(key, shapes):
         """(bytes, FLOPs) one call must move and do at these per-lane
@@ -643,7 +788,7 @@ def main():
         flops models count it whole, because they price work for the
         cost model, not bound it).  A blocked kernel computes its base
         kernel's function, so it has the same least work."""
-        key = key.removesuffix("_blocked")
+        key = key.removesuffix("_blocked").removesuffix("_tiled")
         if key in ("fft", "pusch_fft"):
             nf = shapes[0][-1]
             rows = shapes[0][0] if key == "pusch_fft" else 1
@@ -701,7 +846,7 @@ def main():
     def library(key, args):
         """One PyTorch call computing the same function, where there is
         one (its inputs prepared outside the timed call), else None."""
-        key = key.removesuffix("_blocked")
+        key = key.removesuffix("_blocked").removesuffix("_tiled")
         if key == "cholesky_solve":
             return lambda: torch.linalg.solve_ex(
                 *args, check_errors=False).result
@@ -726,61 +871,67 @@ def main():
     for name, k in kern.items():
         key = timed.get(name, name)
         kfn, pfn = calls.get(key, (fused[key], plain[key]))
-        cases = [(f"n={n}", n, None, lambda n=n: slot_case(key, rng,
-                                                           LANES, n))
+        cases = [(f"n={n}", n, None, LANES,
+                  lambda n=n: slot_case(key, rng, LANES, n))
                  for n in SLOT_SIZES if key in SLOT_KEYS]
         if name == "fft":
-            cases.append((f"nf={NFFT_MAX}", None, None,
+            cases.append((f"nf={NFFT_MAX}", None, None, LANES,
                           lambda: (rand(rng, LANES, NFFT_MAX),
                                    rand(rng, LANES, NFFT_MAX))))
         for n, m, form in MID_TIMES.get(name, ()):
             cases.append((f"n={n}" + (f" {form}" if form else ""), n, form,
-                          lambda n=n, m=m: mid_case(key, LANES, n, m)))
+                          LANES, lambda n=n, m=m: mid_case(key, LANES, n, m)))
+        if name in TILED_TIMES:
+            cases += [(f"n={n} B={b}", n, None, b,
+                       lambda n=n, b=b: mid_case(key, b, n))
+                      for n, b in TILED_CASES]
         sweep = []
-        for label, n, form, make in cases:
+        for label, n, form, lanes, make in cases:
             args = make()
             tkey = key if label != f"nf={NFFT_MAX}" else "fft"
             tk, tp_ = calls.get(tkey, (kfn, pfn))
             shapes = tuple(tuple(a.shape[1:]) for a in args)
             lane_bytes, lane_flops = work(tkey, shapes)
-            nbytes, flops = LANES * lane_bytes, LANES * lane_flops
+            nbytes, flops = lanes * lane_bytes, lanes * lane_flops
             t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
             t_ops = flops / PEAK_F32_FLOPS * 1e3
             before = k.launches_global
-            ms, ms_max = time_ms(lambda: tk(*args), 30)
+            ms, ms_max, reps = time_ms(lambda: tk(*args), 30)
             if (form == "global") != (k.launches_global > before):
                 fail(f"{name} {label}: ran the wrong form")
             large = n is not None and n >= MID_SIZES[0]
-            plain_ms = time_ms(lambda: tp_(*args), 1 if name == "svd"
-                               or large else 3)[0]
+            plain_ms, _, plain_reps = time_ms(
+                lambda: tp_(*args), 1 if name == "svd" or large else 3)
             lib = library(tkey, args)
-            lib_ms = time_ms(lib, 10)[0] if lib else None
+            lib_ms, _, lib_reps = time_ms(lib, 10) if lib else (None, 0, 0)
             sweep.append({
-                "case": label, "n": n, "form": form,
-                "shapes": [list(s) for s in shapes],
+                "case": label, "n": n, "form": form, "lanes": lanes,
+                "shapes": [list(s) for s in shapes], "reps": reps,
                 "ms": ms, "ms_max": ms_max, "plain_ms": plain_ms,
-                "plain_reps": 1 if name == "svd" or large else 3,
+                "plain_reps": plain_reps, "library_reps": lib_reps,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
                 "library_syncs": syncs(lib) if lib else None})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
-                  f"(slowest {ms_max:.4f})  plain "
+                  f"(median of {reps}, slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
                   + (f"  library {lib_ms:.4f} ms" if lib_ms else "")
                   + ("  (library syncs the host)"
                      if sweep[-1]["library_syncs"] else ""),
                   flush=True)
             del args
-        head = next(r for r in sweep if r["n"] == SLOT_SIZES[-1]) \
-            if key in SLOT_KEYS else sweep[-1]
+        if key in SLOT_KEYS:
+            head = next(r for r in sweep if r["n"] == SLOT_SIZES[-1])
+        else:               # the tiled kernels' head row is n = 512
+            head = sweep[0] if name in TILED_TIMES else sweep[-1]
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
             "launches_global": launches_global[name],
             "max_abs_err": max_err[name],
             "rtol": RTOLS.get(name, RTOL),
-            "lanes": LANES, "shapes": head["shapes"],
+            "lanes": head["lanes"], "shapes": head["shapes"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],

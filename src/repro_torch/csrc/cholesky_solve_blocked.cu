@@ -27,6 +27,7 @@
 #include <cstddef>
 
 #include "lane_common.cuh"
+#include "tile_loops.cuh"
 
 namespace repro_torch {
 namespace {
@@ -104,28 +105,28 @@ cholesky_solve_blocked_kernel(const float* __restrict__ A,
     // SYRK tiles: a thread sums a 4 x 4 block of outputs, each over the
     // panel columns in order; a warp takes 4 x 8 blocks (16 rows x 32
     // columns), so its row and column loads fall in distinct banks
-    // (pitch bs + 1) or are broadcasts.  The tiles cover the trailing
-    // block only because n - t0 is a multiple of bs, and bs of 32.
+    // (pitch bs + 1) or are broadcasts.  The block and warp-tile counts
+    // round up, so the tiles cover a trailing block of any size: rows
+    // past n are loaded from row n - 1 and never stored.
     const int t0 = o + bs;
-    const int nb = (n - t0) / 4;
-    const int sj = nb / 8;
+    const int nb = ceil_div(n - t0, 4);
+    const int si = ceil_div(nb, 4);
+    const int sj = ceil_div(nb, 8);
     const int warp = tid >> 5;
     const int lid = tid & 31;
-    for (int st = warp; st < (nb / 4) * sj; st += nt >> 5) {
+    for (int st = warp; st < si * sj; st += nt >> 5) {
       const int bi = (st / sj) * 4 + (lid >> 3);
       const int bj = (st % sj) * 8 + (lid & 7);
-      if (bj > bi) continue;
+      if (bi >= nb || bj > bi) continue;
       const int i0 = t0 + 4 * bi;
       const int j0 = t0 + 4 * bj;
-      const float* ci = c + i0 * pc;
-      const float* cj = c + j0 * pc;
       float s[4][4] = {};
       for (int p = 0; p < bs; ++p) {
         float x[4], w[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          x[r] = ci[r * pc + p];
-          w[r] = cj[r * pc + p];
+          x[r] = c[min(i0 + r, n - 1) * pc + p];
+          w[r] = c[min(j0 + r, n - 1) * pc + p];
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r)
@@ -136,7 +137,8 @@ cholesky_solve_blocked_kernel(const float* __restrict__ A,
       for (int r = 0; r < 4; ++r)
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if (j0 + q <= i0 + r) a[(i0 + r) * n + j0 + q] -= s[r][q];
+          if (i0 + r < n && j0 + q <= i0 + r)
+            a[(i0 + r) * n + j0 + q] -= s[r][q];
     }
     __syncthreads();
   }
@@ -176,8 +178,7 @@ size_t cholesky_solve_blocked_smem(int n, int m, int bs) {
 }
 
 // a (batch, n, n), b (batch, n, m) -> x (batch, n, m), all float32;
-// work: batch * n * n floats; n % bs == 0 and bs % 32 == 0 (the SYRK's
-// warp tiles cover 32 columns).
+// work: batch * n * n floats; n % bs == 0.
 int cholesky_solve_blocked_f32(const void* a, const void* b, void* x,
                                void* work, int batch, int n, int m, int bs,
                                float eps, void* stream) {

@@ -33,6 +33,7 @@
 #include <cstddef>
 
 #include "lane_common.cuh"
+#include "tile_loops.cuh"
 
 namespace repro_torch {
 namespace {
@@ -79,14 +80,16 @@ __device__ inline void apply_block(float* src, int ld, int c0, int cw, int m,
   const int nt = blockDim.x;
   const int pc = bs + 1;
   const int qg = (cw + 3) / 4;          // groups of 4 columns
-  // W1 = V^T C: 2 reflectors x 4 columns a thread
-  for (int e = tid; e < (bs / 2) * qg; e += nt) {
+  // W1 = V^T C: 2 reflectors x 4 columns a thread; the pair count rounds
+  // up, and an odd panel width's last pair has one reflector
+  for (int e = tid; e < ceil_div(bs, 2) * qg; e += nt) {
     const int p0 = 2 * (e / qg);
     const int q0 = 4 * (e % qg);
+    const bool pair = p0 + 1 < bs;
     float s0[4] = {}, s1[4] = {};
     for (int i = o + p0; i < m; ++i) {
       const float v0 = vrow(pan, vd, pc, o, i, p0);
-      const float v1 = vrow(pan, vd, pc, o, i, p0 + 1);
+      const float v1 = pair ? vrow(pan, vd, pc, o, i, p0 + 1) : 0.0f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         if (q0 + q < cw) {
@@ -100,7 +103,7 @@ __device__ inline void apply_block(float* src, int ld, int c0, int cw, int m,
     for (int q = 0; q < 4; ++q) {
       if (q0 + q < cw) {
         w1[p0 * kChunk + q0 + q] = s0[q];
-        w1[(p0 + 1) * kChunk + q0 + q] = s1[q];
+        if (pair) w1[(p0 + 1) * kChunk + q0 + q] = s1[q];
       }
     }
   }
@@ -309,8 +312,7 @@ size_t qr_solve_blocked_smem(int m, int n, int k, int bs) {
 }
 
 // a (batch, m, n) with m >= n, b (batch, m, k) -> x (batch, n, k), float32;
-// work: batch * m * n floats; n % bs == 0 and bs % 32 == 0 (W1 takes the
-// reflectors in pairs).
+// work: batch * m * n floats; n % bs == 0.
 int qr_solve_blocked_f32(const void* a, const void* b, void* x, void* work,
                          int batch, int m, int n, int k, int bs, float tiny,
                          void* stream) {

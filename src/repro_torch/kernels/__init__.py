@@ -22,11 +22,8 @@ Names, sizes, tolerances, variant order, ``when`` predicates, flops
 models and DAG declarations are the reference's
 (``repro/kernels/__init__.py``), so dispatch, pricing and criticality
 agree with it on every shape.  The ``blocked`` variants (n >= 128,
-n % 32 == 0) run the port's K10 and K11.  The HBM-scale ``tiled``
-variants (K12-K14, n >= 512) keep their rows and predicates but are not
-ported yet: their entry point is :func:`later_slice`, which raises, and
-the serving stack refuses a bucket that dispatches to them instead of
-serving it on another kernel.
+n % 32 == 0) run the port's K10 and K11, the HBM-scale ``tiled``
+variants (n >= 512, listed before ``blocked``) its K12-K14.
 
 The registry is built lazily on first access: ``repro_torch.pipelines``
 imports ``repro_torch.kernels.common``, so eager registration here would
@@ -43,13 +40,7 @@ import torch
 
 __all__ = ["KernelSpec", "Variant", "Coalescer", "StageSpec", "DagSpec",
            "register", "register_dag", "get", "names", "specs", "get_dag",
-           "dag_names", "dag_specs", "later_slice"]
-
-
-def later_slice(*args, **kwargs):
-    """Entry point of a registered variant that is not ported yet (the
-    tiled HBM-scale kernels, K12-K14, n >= 512)."""
-    raise NotImplementedError("K12–K14 (tiled, n >= 512): later slice")
+           "dag_names", "dag_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +83,12 @@ class Variant:
     padding lane), and ``make_case``; ``None`` inherits the spec's.
     ``sizes`` is the variant's default bench/test sweep and ``flops`` an
     optional closed-form model-FLOP count over per-lane shapes.
+
+    ``fits(shapes)``, where given, says whether the variant's CUDA
+    kernel can launch at these per-lane shapes (its shared memory within
+    the card's limit).  A dispatcher serving on a CUDA device passes
+    over a variant that does not fit; the plain versions on the CPU take
+    every shape, so there it is never asked.
     """
 
     name: str
@@ -102,6 +99,7 @@ class Variant:
     make_case: Callable | None = None
     sizes: tuple[int, ...] = ()
     flops: Callable | None = None
+    fits: Callable | None = None
 
     def model_flops(self, shapes) -> float:
         """Closed-form model FLOPs for ONE lane at per-lane arg shapes —
@@ -539,12 +537,14 @@ def _register_all() -> None:
         coalesce=_solver_coalescer,
         flops=_chol_solve_flops,
         variants=(
-            Variant(name="tiled", fn=later_slice,
+            Variant(name="tiled", fn=pp.cholesky_solve_tiled_fused,
                     when=_tiled_when, make_case=_chol_tiled_case,
                     sizes=(512, 1024), flops=_chol_solve_flops),
             Variant(name="blocked", fn=pp.cholesky_solve_blocked_fused,
                     when=_blocked_when, sizes=(128, 256),
-                    flops=_chol_solve_flops))))
+                    flops=_chol_solve_flops,
+                    fits=lambda s: pp.cholesky_solve_blocked_fits(
+                        s[0][0], s[1][-1])))))
 
     def _qr_solve_case(rng, n):
         a = _tensor(rng.standard_normal((2, n + 4, n)).astype(np.float32))
@@ -567,12 +567,14 @@ def _register_all() -> None:
         coalesce=_solver_coalescer,
         flops=_qr_solve_flops,
         variants=(
-            Variant(name="tiled", fn=later_slice,
+            Variant(name="tiled", fn=pp.qr_solve_tiled_fused,
                     when=_tiled_when, make_case=_tall_tiled_case,
                     sizes=(512, 1024), flops=_qr_solve_flops),
             Variant(name="blocked", fn=pp.qr_solve_blocked_fused,
                     when=_blocked_when, sizes=(128, 256),
-                    flops=_qr_solve_flops))))
+                    flops=_qr_solve_flops,
+                    fits=lambda s: pp.qr_solve_blocked_fits(
+                        s[0][0], s[0][1], s[1][-1])))))
 
     def _mmse_case(rng, n):
         h = _tensor(rng.standard_normal((2, n + 4, n)).astype(np.float32))
@@ -631,7 +633,7 @@ def _register_all() -> None:
                     make_case=_mmse_split_case,
                     sizes=(8, 16, 24),
                     flops=_mmse_split_flops),
-            Variant(name="tiled", fn=later_slice,
+            Variant(name="tiled", fn=pp.mmse_equalize_tiled_fused,
                     when=_tiled_when, make_case=_tall_tiled_case,
                     sizes=(512, 1024), flops=_mmse_flops))))
 

@@ -415,8 +415,10 @@ def main(argv=None) -> dict | None:
                     help="trace length in TTI slots")
     ap.add_argument("--lanes", type=int, default=8)
     ap.add_argument("--sizes", default="8,12",
-                    help="comma-separated antenna sizes n (m = n + 4); "
-                         "--pusch serves its DAGs at the first size")
+                    help="comma-separated antenna sizes n (m = n + 4): "
+                         "n >= 128 with n %% 32 == 0 serves the blocked "
+                         "kernels, n >= 512 the tiled ones; --pusch "
+                         "serves its DAGs at the first size")
     ap.add_argument("--deadline-ms", type=float, default=2.0,
                     help="per-job deadline after arrival (virtual ms)")
     ap.add_argument("--max-wait-ms", type=float, default=1.0,

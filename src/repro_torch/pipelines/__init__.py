@@ -17,6 +17,10 @@ lane, written by hand for Hopper (``src/repro_torch/csrc/``):
   svd_apply            K9 — V diag(s / (s^2 + lam)) U^T b
   cholesky_solve_blocked  K10 — K1 by panels + rank-bs SYRK (n >= 128)
   qr_solve_blocked     K11 — compact-WY least squares (n >= 128)
+  cholesky_solve_tiled    K12 — K10 with slabs streamed past shared
+                          memory (n >= 512)
+  qr_solve_tiled       K13 — K11 the same way, global-threshold back-sub
+  mmse_equalize_tiled  K14 — tiled Gram + matched filter, K12's phases
 
 Each module holds the kernel's wrapper (``*_fused``: the kernel on a
 CUDA tensor, the plain version on a CPU tensor), its plain PyTorch
@@ -24,12 +28,17 @@ version (``*_plain``), and a device-taking public wrapper.  The kernel
 registry (``repro_torch.kernels``) binds them to the serving stack.
 """
 from repro_torch.pipelines.cholesky_solve import (  # noqa: F401
-    cholesky_solve, cholesky_solve_blocked, cholesky_solve_blocked_fused,
-    cholesky_solve_blocked_plain, cholesky_solve_fused, cholesky_solve_plain)
+    TILED_VMEM_BUDGET_BYTES, cholesky_solve, cholesky_solve_blocked,
+    cholesky_solve_blocked_fits, cholesky_solve_blocked_fused,
+    cholesky_solve_blocked_plain, cholesky_solve_fused, cholesky_solve_plain, cholesky_solve_tiled,
+    cholesky_solve_tiled_fused, cholesky_solve_tiled_plain,
+    tiled_block_size, tiled_vmem_floats)
 from repro_torch.pipelines.mmse import (  # noqa: F401
-    expand_complex_channel, mmse_equalize, mmse_equalize_fused,
-    mmse_equalize_plain, mmse_equalize_split, mmse_equalize_split_fused,
-    mmse_equalize_split_plain)
+    expand_complex_channel, mmse_equalize, mmse_equalize_blocked,
+    mmse_equalize_fused, mmse_equalize_plain, mmse_equalize_split,
+    mmse_equalize_split_fused, mmse_equalize_split_plain,
+    mmse_equalize_tiled, mmse_equalize_tiled_fused,
+    mmse_equalize_tiled_plain, mmse_tiled_vmem_floats)
 from repro_torch.pipelines.pusch import (  # noqa: F401
     channel_estimate, channel_estimate_fused, channel_estimate_plain,
     pusch_chain, pusch_chain_fused, pusch_chain_plain, pusch_fft,
@@ -37,8 +46,9 @@ from repro_torch.pipelines.pusch import (  # noqa: F401
     svd_apply_plain, svd_factor, svd_factor_fused, svd_factor_plain,
     unpack_factors)
 from repro_torch.pipelines.qr_solve import (  # noqa: F401
-    qr_solve, qr_solve_blocked, qr_solve_blocked_fused,
-    qr_solve_blocked_plain, qr_solve_fused, qr_solve_plain)
+    qr_solve, qr_solve_blocked, qr_solve_blocked_fits,
+    qr_solve_blocked_fused, qr_solve_blocked_plain, qr_solve_fused, qr_solve_plain, qr_solve_tiled,
+    qr_solve_tiled_fused, qr_solve_tiled_plain, qr_tiled_vmem_floats)
 
 __all__ = [
     "cholesky_solve", "cholesky_solve_fused", "cholesky_solve_plain",
@@ -47,8 +57,17 @@ __all__ = [
     "mmse_equalize_split_plain", "expand_complex_channel",
     "qr_solve", "qr_solve_fused", "qr_solve_plain",
     "cholesky_solve_blocked", "cholesky_solve_blocked_fused",
-    "cholesky_solve_blocked_plain",
+    "cholesky_solve_blocked_plain", "cholesky_solve_blocked_fits",
     "qr_solve_blocked", "qr_solve_blocked_fused", "qr_solve_blocked_plain",
+    "qr_solve_blocked_fits",
+    "TILED_VMEM_BUDGET_BYTES", "tiled_block_size", "tiled_vmem_floats",
+    "cholesky_solve_tiled", "cholesky_solve_tiled_fused",
+    "cholesky_solve_tiled_plain",
+    "qr_solve_tiled", "qr_solve_tiled_fused", "qr_solve_tiled_plain",
+    "qr_tiled_vmem_floats",
+    "mmse_equalize_tiled", "mmse_equalize_tiled_fused",
+    "mmse_equalize_tiled_plain", "mmse_tiled_vmem_floats",
+    "mmse_equalize_blocked",
     "channel_estimate", "channel_estimate_fused", "channel_estimate_plain",
     "pusch_chain", "pusch_chain_fused", "pusch_chain_plain",
     "pusch_fft", "pusch_fft_fused", "pusch_fft_plain",

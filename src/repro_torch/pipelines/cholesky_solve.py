@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
 
@@ -179,19 +180,6 @@ def block_size(n: int, bs: int | None = None) -> int:
     return bs
 
 
-def kernel_block_size(n: int, bs: int | None = None) -> int:
-    """The panel width K10 and K11 take on the card: :func:`block_size`'s,
-    and a multiple of 32, because their tiles cover 32 columns at a time
-    (K10's SYRK warp tiles, K11's reflector pairs and column chunks).
-    The plain versions, like the reference, take any width that tiles
-    n."""
-    bs = block_size(n, bs)
-    if bs % 32:
-        raise ValueError(f"panel width {bs}: the blocked kernels take a "
-                         f"multiple of 32")
-    return bs
-
-
 def panel_factor_forward_step(j: int, c: torch.Tensor, y: torch.Tensor, *,
                               o: int, rows: torch.Tensor,
                               cols_bs: torch.Tensor, thresh: torch.Tensor):
@@ -289,7 +277,6 @@ def cholesky_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
     bs = block_size(n, bs)
     if dev.type == "cpu":
         return cholesky_solve_blocked_plain(a, b, bs=bs, eps=eps)
-    bs = kernel_block_size(n, bs)
     x = torch.empty_like(b)
     if bsz:
         work = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
@@ -298,10 +285,189 @@ def cholesky_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
     return x
 
 
+def cholesky_solve_blocked_fits(n: int, m: int,
+                                bs: int | None = None) -> bool:
+    """Whether K10 can launch at per-lane shapes (n, n), (n, m): its
+    panel of n (bs + 1) floats and the rhs sit in shared memory, which
+    at bs = 64 holds them only up to n = 832 (the tiled K12 serves
+    larger n)."""
+    return (_BLOCKED.smem_bytes(n, m, block_size(n, bs))
+            <= common.MAX_SMEM_BYTES)
+
+
 def cholesky_solve_blocked(a, b, *, bs: int | None = None,
                            device=None) -> torch.Tensor:
     """Public wrapper of the blocked solve (see :func:`cholesky_solve`)."""
     dev = resolve_device(device)
     return cholesky_solve_blocked_fused(
+        torch.as_tensor(a, device=dev).contiguous(),
+        torch.as_tensor(b, device=dev).contiguous(), bs=bs)
+
+
+# ---------------------------------------------------------------------------
+# K12: the slab-streamed tiled solve (the HBM-scale variant, n >= 512)
+# ---------------------------------------------------------------------------
+
+# The reference's admission rule for its tiled kernels: one grid cell's
+# working set must stay inside a TPU core's ~16 MiB vector memory.  The
+# port's kernels stream slabs past shared memory and have no such limit,
+# but keep the rule so that they refuse exactly the shapes the reference
+# refuses.
+TILED_VMEM_BUDGET_BYTES = 14 * 2 ** 20
+
+
+def tiled_block_size(n: int) -> int:
+    """Default slab width: the largest of {128, 64, 32} dividing n, so
+    every n % 32 == 0 shape the dispatcher routes here tiles."""
+    for bs in (128, 64, 32):
+        if n % bs == 0:
+            return bs
+    raise ValueError(f"n={n} does not tile into 32-wide slabs")
+
+
+def tiled_vmem_floats(n: int, bs: int, m: int) -> int:
+    """The reference's per-cell working set of the tiled solve, in
+    float32 elements: slab (n, bs) + panel carry (2, n, bs) + rhs carry,
+    b and x blocks (n, m) each."""
+    return 3 * n * bs + 3 * n * m
+
+
+def tiled_admit(name: str, n: int, bs: int | None, floats) -> int:
+    """The slab width of a tiled call at ``n`` (default
+    :func:`tiled_block_size`), or ValueError where the reference asserts:
+    a width that does not tile n, fewer than two slabs, or a working set
+    ``floats(bs)`` past :data:`TILED_VMEM_BUDGET_BYTES`.  Reads shapes
+    only, so a refused call allocates nothing."""
+    if bs is None:
+        bs = tiled_block_size(n)
+    if bs < 1 or n % bs or n < 2 * bs:
+        raise ValueError(f"{name}: slab width {bs} must tile n = {n} in "
+                         f"at least two slabs")
+    if 4 * floats(bs) > TILED_VMEM_BUDGET_BYTES:
+        raise ValueError(f"{name}: n = {n}, bs = {bs} needs "
+                         f"{4 * floats(bs)} bytes a cell, past the "
+                         f"reference's {TILED_VMEM_BUDGET_BYTES}-byte "
+                         f"budget")
+    return bs
+
+
+def tiled_trailing_update(slab: torch.Tensor, pan: torch.Tensor, t: int, *,
+                          o: int, bs: int,
+                          rows: torch.Tensor) -> torch.Tensor:
+    """Rank-``bs`` SYRK of the factored panel ``pan`` (B, n, bs) onto
+    column slab ``t``: slab[r, j] -= sum_p pan[r, p] pan[t bs + j, p] for
+    the rows below the panel (r >= o + bs)."""
+    pt = pan[:, t * bs:(t + 1) * bs]
+    pm = torch.where(rows[:, None] >= o + bs, pan, 0.0)
+    return slab - pm @ pt.transpose(-1, -2)
+
+
+def tiled_backsub_step(slab: torch.Tensor, z: torch.Tensor, rt: int, *,
+                       bs: int, rows: torch.Tensor) -> torch.Tensor:
+    """Left-looking block step of the L^T back substitution on column
+    slab ``rt`` (slabs taken in reverse): subtract the already-solved
+    components below, then solve the (bs, bs) diagonal block."""
+    o = rt * bs
+    below = torch.where(rows[:, None] >= o + bs, slab, 0.0)
+    zt = z[:, o:o + bs] - below.transpose(-1, -2) @ z
+    lb = slab[:, o:o + bs]
+    rows_bs = torch.arange(bs, device=slab.device)
+    for i in range(bs):
+        zt = back_substitution_step(i, lb, zt, rows_bs, n=bs)
+    return torch.cat([z[:, :o], zt, z[:, o + bs:]], dim=1)
+
+
+def tiled_chain_plain(slabs: list, y: torch.Tensor, *, bs: int,
+                      thresh: torch.Tensor) -> torch.Tensor:
+    """The tiled factor -> forward -> back chain over the column slabs
+    (B, n, bs) of a symmetric working matrix whose lower triangle holds
+    the system, shared by the plain versions of K12 and K14 as the
+    kernels share ``csrc/tiled_chol.cuh``: per panel step, ``bs`` fused
+    factor + forward steps on the panel slab, then the rank-bs update of
+    every slab to its right; then the block back substitution over the
+    slabs in reverse."""
+    n = y.shape[1]
+    rows = torch.arange(n, device=y.device)
+    cols_bs = torch.arange(bs, device=y.device)
+    steps = n // bs
+    slabs = list(slabs)
+    for s in range(steps):
+        o = s * bs
+        c = slabs[s]
+        for j in range(bs):
+            c, y = panel_factor_forward_step(j, c, y, o=o, rows=rows,
+                                             cols_bs=cols_bs, thresh=thresh)
+        slabs[s] = c
+        for t in range(s + 1, steps):
+            slabs[t] = tiled_trailing_update(slabs[t], c, t, o=o, bs=bs,
+                                             rows=rows)
+    for t in range(steps):
+        rt = steps - 1 - t
+        y = tiled_backsub_step(slabs[rt], y, rt, bs=bs, rows=rows)
+    return y
+
+
+def cholesky_solve_tiled_plain(a: torch.Tensor, b: torch.Tensor, *,
+                               bs: int | None = None,
+                               eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """Plain PyTorch version of K12: a (B,N,N), b (B,N,M) -> x (B,N,M) by
+    the reference's tiled algorithm, its float grouping included (the
+    left-looking block back substitution, not K10's n-step chain).  Only
+    the lower triangle of ``a`` is read; the threshold comes from its raw
+    diagonal."""
+    n, m = a.shape[-1], b.shape[-1]
+    bs = tiled_admit("cholesky_solve_tiled", n, bs,
+                     lambda w: tiled_vmem_floats(n, w, m))
+    rows = torch.arange(n, device=a.device)
+    diag = torch.diagonal(a, dim1=-2, dim2=-1)
+    thresh = torch.clamp_min(eps * diag.amax(dim=-1), 1e-30)
+    low = torch.where(rows[:, None] >= rows[None, :], a, 0.0)
+    slabs = [low[:, :, o:o + bs] for o in range(0, n, bs)]
+    return tiled_chain_plain(slabs, b, bs=bs, thresh=thresh)
+
+
+_TILED = CudaKernel(
+    "cholesky_solve_tiled", "cholesky_solve_tiled_f32",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float],
+    "cholesky_solve_tiled_smem", 3,
+    source="src/repro_torch/csrc/cholesky_solve_tiled.cu",
+    replaces="src/repro/pipelines/cholesky_solve.py:503 "
+             "cholesky_solve_tiled",
+)
+
+
+def cholesky_solve_tiled_fused(a: torch.Tensor, b: torch.Tensor, *,
+                               bs: int | None = None,
+                               eps: float = DEFAULT_EPS) -> torch.Tensor:
+    """Slab-streamed SPD solve — the HBM-scale path (the registry's
+    ``tiled`` variant, n >= 512 with n % 32 == 0).  Same contract as
+    :func:`cholesky_solve_fused`; slabs of ``bs`` columns (default
+    :func:`tiled_block_size`), refused with ValueError where the
+    reference asserts.  K12 on a CUDA tensor (one launch, L in a device
+    work buffer, shared memory independent of n), its plain version on a
+    CPU one."""
+    bsz, n, n2 = a.shape
+    b2, n3, m = b.shape
+    if not (n == n2 == n3 and bsz == b2):
+        raise ValueError(f"cholesky_solve_tiled: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    bs = tiled_admit("cholesky_solve_tiled", n, bs,
+                     lambda w: tiled_vmem_floats(n, w, m))
+    dev = check_f32("cholesky_solve_tiled", a, b)
+    if dev.type == "cpu":
+        return cholesky_solve_tiled_plain(a, b, bs=bs, eps=eps)
+    x = torch.empty_like(b)
+    if bsz:
+        work = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
+        _TILED.launch(dev, (n, m, bs), a.data_ptr(), b.data_ptr(),
+                      x.data_ptr(), work.data_ptr(), bsz, n, m, bs, eps)
+    return x
+
+
+def cholesky_solve_tiled(a, b, *, bs: int | None = None,
+                         device=None) -> torch.Tensor:
+    """Public wrapper of the tiled solve (see :func:`cholesky_solve`)."""
+    dev = resolve_device(device)
+    return cholesky_solve_tiled_fused(
         torch.as_tensor(a, device=dev).contiguous(),
         torch.as_tensor(b, device=dev).contiguous(), bs=bs)

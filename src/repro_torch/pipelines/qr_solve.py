@@ -26,10 +26,10 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
-from repro_torch.pipelines.cholesky_solve import (block_size,
-                                                  kernel_block_size)
+from repro_torch.pipelines.cholesky_solve import block_size, tiled_admit
 
 DEFAULT_TINY = 1e-20
 
@@ -65,20 +65,24 @@ def reflect_step(k: int, r: torch.Tensor, y: torch.Tensor,
 
 
 def back_substitute_r(r: torch.Tensor, y: torch.Tensor, *, n: int,
-                      tiny: float) -> torch.Tensor:
+                      tiny: float,
+                      thresh: torch.Tensor | None = None) -> torch.Tensor:
     """Back substitution on R[:n,:n] x = (Q^T b)[:n] for every lane.
 
     Uses a relative deficiency threshold from R's diagonal: a pivot
     below it marks a numerically dependent column, whose solution
     component is ZEROED (clamping the divisor instead would overflow
     float32: with R = [[0,1],[0,0]] a clamped 1/tiny cascades to inf
-    through the remaining rows).
+    through the remaining rows).  ``thresh`` (B,) overrides the local
+    threshold — the tiled solve takes one (bs, bs) diagonal block at a
+    time against the GLOBAL threshold of the whole R.
     """
     rows_n = torch.arange(n, device=r.device)
     z = y[:, :n]
-    eye = rows_n[:, None] == rows_n[None, :]
-    diag = torch.abs(torch.where(eye, r[:, :n], 0.0).sum(dim=-1))
-    thresh = torch.clamp_min(1e-6 * diag.amax(dim=-1), tiny)
+    if thresh is None:
+        eye = rows_n[:, None] == rows_n[None, :]
+        diag = torch.abs(torch.where(eye, r[:, :n], 0.0).sum(dim=-1))
+        thresh = torch.clamp_min(1e-6 * diag.amax(dim=-1), tiny)
     for i in range(n):
         k = n - 1 - i
         rkk = r[:, k, k]
@@ -249,7 +253,6 @@ def qr_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
     bs = block_size(n, bs)
     if dev.type == "cpu":
         return qr_solve_blocked_plain(a, b, bs=bs, tiny=tiny)
-    bs = kernel_block_size(n, bs)
     x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
     if bsz:
         work = torch.empty((bsz, m, n), dtype=torch.float32, device=dev)
@@ -259,11 +262,131 @@ def qr_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
     return x
 
 
+def qr_solve_blocked_fits(m: int, n: int, k: int,
+                          bs: int | None = None) -> bool:
+    """Whether K11 can launch at per-lane shapes (m, n), (m, k): its
+    panel of m (bs + 1) floats, T, V^T V and the rhs sit in shared
+    memory, which at bs = 64, k = 1 holds them only up to m = 752 (the
+    tiled K13 serves larger n)."""
+    return (_BLOCKED.smem_bytes(m, n, k, block_size(n, bs))
+            <= common.MAX_SMEM_BYTES)
+
+
 def qr_solve_blocked(a, b, *, bs: int | None = None,
                      device=None) -> torch.Tensor:
     """Public wrapper of the blocked least squares (see
     :func:`qr_solve`)."""
     dev = resolve_device(device)
     return qr_solve_blocked_fused(
+        torch.as_tensor(a, device=dev).contiguous(),
+        torch.as_tensor(b, device=dev).contiguous(), bs=bs)
+
+
+# ---------------------------------------------------------------------------
+# K13: slab-streamed compact-WY least squares (the HBM-scale variant)
+# ---------------------------------------------------------------------------
+
+def qr_tiled_vmem_floats(m: int, n: int, bs: int, k: int) -> int:
+    """The reference's per-cell working set of the tiled least squares,
+    in float32 elements: slab (m, bs) + panel carry (2, m, bs) + V
+    (m, bs) + T (bs, bs) + rhs carry and b block (m, k) each + x block
+    (n, k)."""
+    return 4 * m * bs + bs * bs + 2 * m * k + n * k
+
+
+def qr_solve_tiled_plain(a: torch.Tensor, b: torch.Tensor, *,
+                         bs: int | None = None,
+                         tiny: float = DEFAULT_TINY) -> torch.Tensor:
+    """Plain PyTorch version of K13: a (B,M,N), b (B,M,K) -> x (B,N,K) by
+    the reference's tiled algorithm — per panel, ``bs`` reflectors on the
+    panel slab, T from V^T V, the block reflector on the rhs and on every
+    slab to the right, max |diag R| folded into a running maximum; then
+    each slab in reverse solves its (bs, bs) diagonal block against the
+    GLOBAL threshold max(1e-6 max |diag R|, tiny) and pushes its
+    components to the rows above."""
+    bsz, m, n = a.shape
+    k = b.shape[-1]
+    bs = tiled_admit("qr_solve_tiled", n, bs,
+                     lambda w: qr_tiled_vmem_floats(m, n, w, k))
+    rows = torch.arange(m, device=a.device)
+    cols_bs = torch.arange(bs, device=a.device)
+    eye = cols_bs[:, None] == cols_bs[None, :]
+    steps = n // bs
+    slabs = [a[:, :, o:o + bs] for o in range(0, n, bs)]
+    y = b
+    dmax = torch.zeros(bsz, dtype=a.dtype, device=a.device)
+    for s in range(steps):
+        o = s * bs
+        pan = slabs[s]
+        v = torch.zeros((bsz, m, bs), dtype=a.dtype, device=a.device)
+        taus = torch.zeros((bsz, bs), dtype=a.dtype, device=a.device)
+        for j in range(bs):
+            pan, v, taus = qr_panel_reflect_step(j, pan, v, taus, o=o,
+                                                 rows=rows, tiny=tiny)
+        vt = v.transpose(-1, -2)
+        tt = wy_t(vt @ v, taus).transpose(-1, -2)
+        y = y - v @ (tt @ (vt @ y))
+        d = torch.abs(torch.where(eye, pan[:, o:o + bs], 0.0))
+        dmax = torch.maximum(dmax, d.amax(dim=(-2, -1)))
+        slabs[s] = pan
+        for t in range(s + 1, steps):
+            slabs[t] = slabs[t] - v @ (tt @ (vt @ slabs[t]))
+    thresh = torch.clamp_min(1e-6 * dmax, tiny)
+    z = y
+    for t in range(steps):
+        rt = steps - 1 - t
+        o = rt * bs
+        slab = slabs[rt]
+        xt = back_substitute_r(slab[:, o:o + bs], z[:, o:o + bs], n=bs,
+                               tiny=tiny, thresh=thresh)
+        z = torch.cat([z[:, :o], xt, z[:, o + bs:]], dim=1)
+        above = torch.where(rows[:, None] < o, slab, 0.0)
+        z = z - above @ xt
+    return z[:, :n]
+
+
+_TILED = CudaKernel(
+    "qr_solve_tiled", "qr_solve_tiled_f32",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float],
+    "qr_solve_tiled_smem", 4,
+    source="src/repro_torch/csrc/qr_solve_tiled.cu",
+    replaces="src/repro/pipelines/qr_solve.py:376 qr_solve_tiled",
+)
+
+
+def qr_solve_tiled_fused(a: torch.Tensor, b: torch.Tensor, *,
+                         bs: int | None = None,
+                         tiny: float = DEFAULT_TINY) -> torch.Tensor:
+    """Slab-streamed compact-WY least squares — the HBM-scale path (the
+    registry's ``tiled`` variant, n >= 512 with n % 32 == 0).  Same
+    contract as :func:`qr_solve_fused`; slabs of ``bs`` columns (default
+    ``tiled_block_size``), refused with ValueError where the reference
+    asserts.  K13 on a CUDA tensor (one launch, R, V and the rhs in a
+    device work buffer, shared memory independent of m and n), its plain
+    version on a CPU one."""
+    bsz, m, n = a.shape
+    b2, m2, k = b.shape
+    if not (m == m2 and bsz == b2 and m >= n):
+        raise ValueError(f"qr_solve_tiled: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    bs = tiled_admit("qr_solve_tiled", n, bs,
+                     lambda w: qr_tiled_vmem_floats(m, n, w, k))
+    dev = check_f32("qr_solve_tiled", a, b)
+    if dev.type == "cpu":
+        return qr_solve_tiled_plain(a, b, bs=bs, tiny=tiny)
+    x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
+    if bsz:
+        work = torch.empty((bsz, m * (n + k)), dtype=torch.float32,
+                           device=dev)
+        _TILED.launch(dev, (m, n, k, bs), a.data_ptr(), b.data_ptr(),
+                      x.data_ptr(), work.data_ptr(), bsz, m, n, k, bs, tiny)
+    return x
+
+
+def qr_solve_tiled(a, b, *, bs: int | None = None,
+                   device=None) -> torch.Tensor:
+    """Public wrapper of the tiled least squares (see :func:`qr_solve`)."""
+    dev = resolve_device(device)
+    return qr_solve_tiled_fused(
         torch.as_tensor(a, device=dev).contiguous(),
         torch.as_tensor(b, device=dev).contiguous(), bs=bs)

@@ -9,9 +9,7 @@ that interleaved stream and serves it with the paper's lane model:
     lazily), and each shape bucket resolves through
     ``KernelSpec.dispatch_key`` to a variant (one options-bound entry
     point per pipeline × variant) — 4-plane MMSE buckets serve from the
-    split-complex kernel, without the caller choosing anything.  A
-    bucket whose shapes dispatch to a variant not ported yet (tiled,
-    K12-K14, n >= 512) is refused at :meth:`SolverMux.submit`.
+    split-complex kernel, without the caller choosing anything.
   * **shape buckets** — within a pool, jobs are bucketed by their
     per-arg (shape, dtype) key; only bucket-mates share a lane group
     (unless the overload policy coalesces — below).
@@ -105,10 +103,11 @@ When retries exhaust, the failure is contained instead of propagated:
 
 Variant failures feed the :class:`~repro_torch.serve.solver.
 VariantDispatcher` demotion ladder (``demote_after`` consecutive
-failures ban that variant for that bucket), and a predicted-cost
-watchdog (``watchdog_ratio``; off by default — it compares real
-wall-clock, which golden traces must not) flags launches whose measured
-wall blows past the cost model's prediction.  All of it is observable:
+failures ban that variant for that bucket; on the card a rung whose
+kernel cannot launch at the bucket's shape is passed over), and a
+predicted-cost watchdog (``watchdog_ratio``; off by default — it
+compares real wall-clock, which golden traces must not) flags launches
+whose measured wall blows past the cost model's prediction.  All of it is observable:
 ``retry`` / ``fail`` / ``demote`` / ``watchdog`` events plus the
 ``MetricsSnapshot.faults`` block.  Faults are *injected* only via
 :class:`repro_torch.serve.faults.FaultInjector`
@@ -290,9 +289,10 @@ class _LanePool:
     their own kernel.  ``age`` counts consecutive defer/preempt
     push-backs per bucket (the policy's starvation counter)."""
 
-    def __init__(self, spec, options: dict, cost_model=None):
+    def __init__(self, spec, options: dict, cost_model=None, device=None):
         self.spec = spec
-        self.dispatcher = VariantDispatcher(spec, options, cost_model)
+        self.dispatcher = VariantDispatcher(spec, options, cost_model,
+                                            device)
         self.buckets: dict[tuple, list[SolveJob]] = {}
         self.age: dict[tuple, int] = {}
 
@@ -424,7 +424,7 @@ class SolverMux(EngineCore):
         if pool is None:
             spec = resolve_pipeline_spec(pipeline)
             pool = _LanePool(spec, self._options.get(pipeline, {}),
-                             self.cost_model)
+                             self.cost_model, self.device)
             self._pools[pipeline] = pool
         return pool
 
@@ -444,9 +444,7 @@ class SolverMux(EngineCore):
         NaN/Inf is rejected here — terminal ``state="failed"`` with
         ``reason="nonfinite_input"`` — instead of being enqueued, so a
         poisoned input can never contaminate the lane group (and its
-        coalesced riders) it would have been stacked into.  A job whose
-        shapes dispatch to a variant that is not ported yet raises
-        ``NotImplementedError`` and is not enqueued.
+        coalesced riders) it would have been stacked into.
         """
         if priority not in SolveJob.PRIORITIES:
             raise ValueError(f"priority must be one of "
@@ -455,7 +453,6 @@ class SolverMux(EngineCore):
         job = SolveJob(args=tuple(np.asarray(a) for a in args),
                        pipeline=pipeline, deadline=deadline,
                        priority=priority)
-        pool.dispatcher.resolve(job.shape_key())
         self._seq += 1
         job.seq = self._seq
         job.submitted_at = self.clock()

@@ -96,10 +96,6 @@ class VariantDispatcher:
     ``functools.partial``; PyTorch runs eagerly, so there is no
     per-bucket compile to cache beyond that binding.
 
-    A bucket that dispatches to a variant not ported yet (the tiled
-    HBM-scale kernels K12-K14, n >= 512) raises ``NotImplementedError``
-    here instead of being served on another kernel.
-
     ``cost_model`` (a :class:`repro_torch.serve.cost.CostModel`, lazily
     defaulted) makes the dispatcher the one place a bucket flush gets
     priced: :meth:`price` resolves the bucket's variant and returns the
@@ -117,12 +113,19 @@ class VariantDispatcher:
     filler (e.g. split-complex MMSE's 4 planes) takes different
     arguments, so there is nothing below it to fall to and its jobs fail
     terminally instead.
+
+    On a CUDA ``device`` resolution also passes over a variant whose
+    kernel cannot launch at the bucket's shape (``Variant.fits``): a
+    1024 tiled bucket demotes straight to the base, since the blocked
+    K10/K11 keep a whole panel in shared memory.
     """
 
-    def __init__(self, spec, options: dict | None = None, cost_model=None):
+    def __init__(self, spec, options: dict | None = None, cost_model=None,
+                 device=None):
         self.spec = spec
         self.options = dict(options or {})
         self.cost_model = cost_model
+        self.on_card = device is not None and device.type == "cuda"
         self._fns: dict[str, object] = {}
         self._bans: dict[tuple, set[str]] = {}
         self._fail_streaks: dict[tuple, int] = {}
@@ -131,15 +134,17 @@ class VariantDispatcher:
     def _dispatch(self, key: tuple):
         """``dispatch_key`` with this dispatcher's per-bucket bans
         applied: first applicable non-banned variant in registration
-        order, the spec's base otherwise (base is never banned)."""
+        order (on the card, one whose kernel fits the shape), the spec's
+        base otherwise (base is never banned)."""
         shapes = tuple(tuple(s) for s, _ in key)
         dtypes = tuple(np.dtype(dt) for _, dt in key)
         banned = self._bans.get(key, ())
         for v in self.spec.variants:
-            if v.name in banned:
+            if v.name in banned or not v.when(shapes, dtypes):
                 continue
-            if v.when(shapes, dtypes):
-                return v
+            if self.on_card and v.fits is not None and not v.fits(shapes):
+                continue
+            return v
         return self.spec.base
 
     def demotable(self, key: tuple, variant) -> bool:
@@ -176,13 +181,7 @@ class VariantDispatcher:
         """``key`` is a SolveJob.shape_key(): per-arg ((shape, dtype)).
         Returns the dispatched registry Variant and its options-bound
         entry point."""
-        from repro_torch import kernels as K
         variant = self._dispatch(key)
-        if variant.fn is K.later_slice:
-            raise NotImplementedError(
-                f"{self.spec.name!r} bucket {[list(s) for s, _ in key]} "
-                f"dispatches to the {variant.name!r} variant: K12–K14 "
-                f"(tiled, n >= 512): later slice")
         fn = self._fns.get(variant.name)
         if fn is None:
             fn = functools.partial(variant.fn, **self.options)
@@ -223,7 +222,8 @@ class PipelineEngine(FifoEngineCore):
                  clock=None, device=None, **options):
         super().__init__(lanes, clock=clock, device=device)
         self.spec = resolve_pipeline_spec(pipeline)
-        self._dispatcher = VariantDispatcher(self.spec, options)
+        self._dispatcher = VariantDispatcher(self.spec, options,
+                                             device=self.device)
 
     def submit(self, job: SolveJob) -> SolveJob:
         job.pipeline = self.spec.name

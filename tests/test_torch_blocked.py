@@ -30,8 +30,7 @@ from repro_torch import kernels as TK  # noqa: E402
 from repro_torch import pipelines as tp  # noqa: E402
 from repro_torch.kernels.common import sample_spd  # noqa: E402
 from repro_torch.launch import serve_solvers as TS  # noqa: E402
-from repro_torch.pipelines.cholesky_solve import (  # noqa: E402
-    kernel_block_size)
+from repro_torch.pipelines.cholesky_solve import block_size  # noqa: E402
 from repro_torch.serve import (FaultInjector, ManualClock,  # noqa: E402
                                SolverMux)
 
@@ -169,14 +168,14 @@ def test_blocked_variants_registered_on_the_port_kernels():
 
 
 @pytest.mark.parametrize("kernel", ["cholesky", "qr"])
-def test_card_path_refuses_panel_width_not_multiple_of_32(kernel):
-    """K10's SYRK tiles and K11's reflector pairs cover 32 columns at a
-    time, so the card path refuses bs = 16, which the reference (and the
-    plain version on the CPU) takes."""
-    assert kernel_block_size(128) == 64
-    assert kernel_block_size(160) == 32
-    with pytest.raises(ValueError, match="multiple of 32"):
-        kernel_block_size(128, 16)
+def test_blocked_plain_takes_any_panel_width(kernel):
+    """Any panel width that tiles n is taken, as by the reference: at
+    bs = 16 the plain version matches the reference's blocked kernel (on
+    the card K10's SYRK tiles and K11's reflector pairs now cover the
+    remainder, held against this plain version in test_torch_gpu.py)."""
+    assert block_size(128) == 64
+    assert block_size(160) == 32
+    assert block_size(128, 16) == 16
     rng = np.random.default_rng(16)
     if kernel == "cholesky":
         a, b = spd_system(16, 1, 128, k=2)

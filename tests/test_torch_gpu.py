@@ -1,7 +1,8 @@
-"""The hand-written Hopper kernels (K1-K11) on the card, held against
+"""The hand-written Hopper kernels (K1-K14) on the card, held against
 their plain PyTorch versions on the same card inputs, K1-K4 on lanes
-past shared memory (their global form), and the served DAGs' golden
-replay on the card.
+past shared memory (their global form), the tiled K12-K14 with slabs
+streamed past shared memory, and the served DAGs' golden replay on the
+card.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
@@ -376,3 +377,172 @@ def test_mux_serves_mid_range_mix_on_card(hopper):
     for job in jobs:
         want = TK.get(job.pipeline).run_oracle_lane(*job.args)
         assert_close(job.out, want, rtol=MID_RTOL, name=job.pipeline)
+
+
+@pytest.mark.parametrize("n,bs", [(128, 16), (192, 48), (140, 35)])
+@pytest.mark.parametrize("kernel", sorted(BLOCKED))
+def test_blocked_kernel_takes_any_panel_width(hopper, kernel, n, bs):
+    """K10's SYRK tiles and K11's reflector pairs cover a remainder: panel
+    widths that are not multiples of 32 (an odd one too: K11's last pair
+    holds one reflector) agree with the plain version."""
+    _, fused, plain, rtol = BLOCKED[kernel]
+    args = _card_case(hopper, kernel, 8, n, seed=bs)
+    got = fused(*args, bs=bs)
+    torch.cuda.synchronize()
+    assert_close(got.cpu().numpy(), plain(*args, bs=bs).cpu().numpy(),
+                 rtol=rtol, name=f"{kernel} n={n} bs={bs}")
+
+
+# ---------------- the HBM-scale path: K12-K14 ----------------
+
+# The reference's large-n tolerances (tests/test_tiled.py): the Cholesky
+# kernel at 1e-4 of its plain version, QR and MMSE at 2e-3 for n >= 512.
+TILED = {"cholesky_solve": ("cholesky_solve_tiled",
+                            tp.cholesky_solve_tiled_fused,
+                            tp.cholesky_solve_tiled_plain, 1e-4),
+         "qr_solve": ("qr_solve_tiled", tp.qr_solve_tiled_fused,
+                      tp.qr_solve_tiled_plain, 2e-3),
+         "mmse_equalize": ("mmse_equalize_tiled",
+                           tp.mmse_equalize_tiled_fused,
+                           tp.mmse_equalize_tiled_plain, 2e-3)}
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+@pytest.mark.parametrize("name", sorted(TILED))
+def test_tiled_kernel_matches_plain_version(hopper, name, n):
+    kernel, fused, plain, rtol = TILED[name]
+    spec = TK.get(name)
+    v = next(v for v in spec.variants if v.name == "tiled")
+    assert n in v.sizes
+    args = [a.to(hopper) for a in v.make_case(np.random.default_rng(n), n)]
+    assert spec.dispatch_key(tuple(tuple(a.shape[1:]) for a in args),
+                             ("float32",) * 2).name == "tiled"
+    for bs in (128, 64):
+        before = _launches(kernel)
+        got = fused(*args, bs=bs)
+        torch.cuda.synchronize()
+        assert _launches(kernel) == before + 1
+        assert_close(got.cpu().numpy(), plain(*args, bs=bs).cpu().numpy(),
+                     rtol=rtol, name=f"{kernel} n={n} bs={bs}")
+
+
+def test_tiled_cholesky_guards_on_card(hopper):
+    """K12 never reads the upper triangle (NaN there leaves the answer bit
+    for bit), and a deficient pivot in the third slab (column 300 repeats
+    column 3) zeroes the components the plain version zeroes."""
+    n = 512
+    a, b = _card_case(hopper, "cholesky_solve", 2, n, seed=7)
+    clean = tp.cholesky_solve_tiled_fused(a, b)
+    poisoned = a.clone()
+    iu = torch.triu_indices(n, n, offset=1)
+    poisoned[:, iu[0], iu[1]] = float("nan")
+    assert torch.equal(tp.cholesky_solve_tiled_fused(poisoned, b), clean)
+    rng = np.random.default_rng(3)
+    mm = rng.standard_normal((1, n, n)).astype(np.float32)
+    mm[:, 300] = mm[:, 3]
+    sys_a = torch.from_numpy(mm @ mm.transpose(0, 2, 1)).to(hopper)
+    rhs = b[:1].contiguous()
+    got = tp.cholesky_solve_tiled_fused(sys_a, rhs)
+    want = tp.cholesky_solve_tiled_plain(sys_a, rhs)
+    assert torch.isfinite(got).all()
+    zeros = torch.all(got == 0, dim=-1)
+    assert bool(zeros[0, 300])
+    assert torch.equal(zeros, torch.all(want == 0, dim=-1))
+
+
+@pytest.mark.parametrize("name", sorted(TILED))
+def test_tiled_shared_memory_is_independent_of_n(hopper, name):
+    """A tiled CTA's dynamic shared memory depends on bs and k only, and
+    fits a block at bs = 128."""
+    k = next(k for k in KERNELS if k.name == TILED[name][0])
+    dims = {512: (512, 2, 128), 1024: (1024, 2, 128)}
+    if name != "cholesky_solve":
+        dims = {n: (n + 16, n, 2, 128) for n in (512, 1024)}
+    assert k.smem_bytes(*dims[1024]) == k.smem_bytes(*dims[512]) \
+        <= common.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("name", sorted(TILED))
+def test_coalesced_corner_bit_identical_in_tiled_bucket(hopper, name):
+    """A 512 job embedded in a 1024 tiled bucket's lane solves to exactly
+    its solo tiled answer on the card (both at slab width 128)."""
+    spec = TK.get(name)
+    v = next(v for v in spec.variants if v.name == "tiled")
+    rng = np.random.default_rng(5)
+    small = [a[0].numpy() for a in v.make_case(rng, 512)]
+    big = [a[0].numpy() for a in v.make_case(rng, 1024)]
+    assert spec.dispatch_key(tuple(a.shape for a in big),
+                             ("float32",) * 2).name == "tiled"
+    embedded = spec.coalesce.embed(small, tuple(a.shape for a in big))
+    fused = TILED[name][1]
+    solo = fused(*(torch.from_numpy(a[None]).to(hopper)
+                   for a in small))[0].cpu().numpy()
+    out = fused(*(torch.from_numpy(np.stack([e, b])).to(hopper)
+                  for e, b in zip(embedded, big)))[0].cpu().numpy()
+    got = spec.coalesce.extract(out, tuple(a.shape for a in small))
+    np.testing.assert_array_equal(got, solo)
+
+
+def test_mux_serves_hbm_mix_on_card(hopper):
+    """The n = 512 slot mix served on the card runs K12, K13, K14 and the
+    global form of K3 (the split-complex jobs' 2n = 1024 system)."""
+    from repro_torch.launch.serve_solvers import build_slot_jobs
+    for k in KERNELS:
+        k.launches = k.launches_global = 0
+    mux = SolverMux(lanes=4, clock=ManualClock())
+    rng = np.random.default_rng(0)
+    jobs = []
+    for slot in range(4):
+        for pipeline, arrays, priority in build_slot_jobs(rng, slot, [512]):
+            jobs.append(mux.submit(pipeline, *arrays, priority=priority))
+    mux.run()
+    assert all(j.state == "done" for j in jobs)
+    for name in ("cholesky_solve_tiled", "qr_solve_tiled",
+                 "mmse_equalize_tiled", "mmse_equalize_split"):
+        assert _launches(name) > 0, name
+    assert next(k for k in KERNELS
+                if k.name == "mmse_equalize_split").launches_global > 0
+    for job in jobs:
+        want = TK.get(job.pipeline).run_oracle_lane(*job.args)
+        assert_close(job.out, want, rtol=2e-3, name=job.pipeline)
+
+
+@pytest.mark.parametrize("name", ["cholesky_solve", "qr_solve"])
+def test_tiled_1024_bucket_demotes_past_blocked_rung_to_base(hopper, name):
+    """K10/K11 keep a whole panel in shared memory: at n = 512 they fit,
+    at n = 1024 their launch is refused, and ``Variant.fits`` says so
+    from the same query.  A 1024 tiled bucket that fails twice therefore
+    demotes straight to the base (K1/K4 in their global form), which
+    serves the jobs."""
+    from repro_torch.launch import serve_solvers as TS
+    from repro_torch.serve import FaultInjector
+    fits = getattr(tp, f"{name}_blocked_fits")
+    blocked = getattr(tp, f"{name}_blocked_fused")
+    m, k = (1024, 2) if name == "cholesky_solve" else (1028, 1)
+    if name == "cholesky_solve":
+        assert fits(512, 2) and not fits(1024, 2)
+    else:
+        assert fits(516, 512, 1) and not fits(1028, 1024, 1)
+    a = torch.eye(m, 1024, device=hopper)[None].contiguous()
+    with pytest.raises(ValueError, match="shared memory"):
+        blocked(a, torch.zeros((1, m, k), device=hopper))
+
+    base = next(kk for kk in KERNELS if kk.name == name)
+    before = base.launches_global
+    trace = {"target": [{"pipeline": name, "variant": "tiled",
+                         "kind": "raise", "count": 2}]}
+    mux = SolverMux(lanes=2, clock=ManualClock(),
+                    injector=FaultInjector(trace, seed=0))
+    jobs = [mux.submit(name, *TS.job_args(name, 1024, 2, seed))
+            for seed in range(2)]
+    mux.poll()
+    assert all(j.state == "done" for j in jobs)
+    assert [(e["from_variant"], e["to_variant"]) for e in mux.events
+            if e["event"] == "demote"] == [("tiled", "base")]
+    assert [e["variant"] for e in mux.events if e["event"] == "flush"] \
+        == ["base"]
+    assert base.launches_global > before
+    for job in jobs:
+        want = TK.get(name).run_oracle_lane(*job.args)
+        assert_close(job.out, np.asarray(want), rtol=2e-3,
+                     name=f"demoted-{name}")

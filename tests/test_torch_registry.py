@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from repro import kernels as RK  # noqa: E402
 from repro_torch import kernels as TK  # noqa: E402
+from repro_torch import pipelines as tp  # noqa: E402
 from repro_torch.serve import ManualClock, SolverMux  # noqa: E402
 
 SPECS = ["cholesky_solve", "qr_solve", "mmse_equalize"]
@@ -134,18 +135,19 @@ def test_run_oracle_lane_routes_split_jobs():
 @pytest.mark.parametrize("name,n", [("cholesky_solve", 512),
                                     ("qr_solve", 512),
                                     ("mmse_equalize", 512)])
-def test_unported_variants_are_refused_not_served(name, n):
-    """A shape the reference sends to the tiled HBM-scale kernels
-    (K12-K14) is never served quietly on another kernel: the entry point
-    raises and the mux refuses the job at submit."""
+def test_tiled_variants_are_served_on_port_kernels(name, n):
+    """A shape the reference sends to its tiled HBM-scale kernels
+    dispatches to the port's ``tiled`` variant, whose entry point is the
+    port's K12-K14 wrapper, and the mux enqueues the job."""
     spec = TK.get(name)
     m = n if name == "cholesky_solve" else n + 4
     v = spec.dispatch_key(((m, n), (m, 2)), ("float32", "float32"))
     assert v.name == "tiled"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        v.fn()
+    assert v.fn is {"cholesky_solve": tp.cholesky_solve_tiled_fused,
+                    "qr_solve": tp.qr_solve_tiled_fused,
+                    "mmse_equalize": tp.mmse_equalize_tiled_fused}[name]
     mux = SolverMux(lanes=2, clock=ManualClock(), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mux.submit(name, np.eye(m, n, dtype=np.float32),
-                   np.zeros((m, 2), np.float32))
-    assert mux.pending() == 0
+    job = mux.submit(name, np.eye(m, n, dtype=np.float32),
+                     np.zeros((m, 2), np.float32))
+    assert job.state == "queued"
+    assert mux.pending() == 1
