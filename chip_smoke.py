@@ -9,8 +9,8 @@ Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (nvidia-smi), TF32 off;
   2. build   — every kernel in src/repro_torch/csrc built from source;
-  3. kernels — K1-K14 held against their plain PyTorch versions and the
-               oracles at the registry sizes, at a slot's real width
+  3. kernels — K1-K17 and K19 held against their plain PyTorch versions
+               and the oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
                PRBs x 12 subcarriers, 3GPP TS 38.101-1 Table 5.3.2-1;
                the FFT over 3276 (n + 4) antenna rows of 64 points and
@@ -28,7 +28,16 @@ Phases, each fatal on failure:
                48 at n = 192).  The HBM-scale path: the tiled K12-K14 at
                n = 512 (B = 3276) and n = 1024 (B = 264, a carrier's
                width at that size would not fit the card's memory beside
-               its plain version) at bs = 128, and their guard cases;
+               its plain version) at bs = 128, and their guard cases.
+               The primitives: K15-K17 (K16 forward and backward) at the
+               registry sizes, at B = 3276 (n = 8, 16, 32; m = n + 4 for
+               K17, two right-hand sides for K16) and on one lane past
+               shared memory (n = 256, m = 260: the global form), their
+               global form equal to the shared one bit for bit at n = 32;
+               K19 at 61,440 outputs (one 0.5 ms slot of one antenna at
+               122.88 Msps) with 31 and 65 taps; guard cases (NaN in the
+               unread triangle of K15 and K16, m = n + 1 and m = 1 for
+               K17, even and odd taps and ragged tiles for K19);
   4. serve   — the main paths, each with every kernel's launch count
                reset before and read after: the TTI slot mix
                (``repro_torch.launch.serve_solvers.main`` on two mixes and
@@ -41,18 +50,30 @@ Phases, each fatal on failure:
                policy: K10, K11 and the global forms of K2 and K3) and
                the HBM-scale slot mix (``main --sizes 512 --slots 4
                --lanes 32``, with and without the policy: K12, K13, K14
-               and the global form of K3);
+               and the global form of K3); the DSP receiver chain
+               (``repro_torch.launch.dsp_pipeline.main`` at its defaults
+               and at ``--batch 3276 --samples 61470``: exactly K15 1,
+               K16 2, K7 1, K19 1, K8 1) and the unfused baselines
+               (``cholesky_solve_unfused``, ``qr_solve_unfused``,
+               ``mmse_equalize_composed`` at B = 3276, n = 8, 16, 32:
+               their primitive launches only, each equal to its fused
+               kernel within the reference's tolerance);
   5. times   — each kernel at B = 3276 timed with CUDA events (cold L2)
                beside its bound, its plain version and, where one PyTorch
                call computes the same function, that call; the blocked
                kernels and the global forms at n = 128 and 256, K2's
                shared form at n = 128, and the tiled kernels at n = 512
-               (B = 3276) and 1024 (B = 264).  The median of 30 calls, or
-               of 5 where one call passes 250 ms (``reps`` on the row).
+               (B = 3276) and 1024 (B = 264); K15-K17 at B = 3276 (K16
+               forward and backward) and K19 at 61,440 outputs.  The
+               median of 30 calls, or of 5 where one call passes 250 ms
+               (``reps`` on the row).  The fusion block: at B = 3276 and
+               n = 8, 16, 32 the wall of each unfused chain (events
+               around the whole chain, its copies and library products
+               included) beside its fused kernel (K1, K4, K2).
 
-The second-to-last lines are the ``{"kernels": [...]}`` JSON line and the
-card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+The lines before the last are the ``{"fusion": [...]}`` and
+``{"kernels": [...]}`` JSON lines and the card's name and power limit;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import json
@@ -96,7 +117,8 @@ RTOL = 1e-4                  # the solver specs' rtol
 SVD_RTOL = 4.0 * (2.0 ** -23) ** 0.5   # 4 sqrt(eps_f32), the SVD specs'
 RTOLS = {"fft": 1e-3, "pusch_fft": 1e-3, "svd": SVD_RTOL,
          "svd_factor": SVD_RTOL, "qr_solve_blocked": 1e-3,
-         "qr_solve_tiled": 2e-3, "mmse_equalize_tiled": 2e-3}
+         "qr_solve_tiled": 2e-3, "mmse_equalize_tiled": 2e-3,
+         "trisolve": 1e-3, "trisolve_upper": 1e-3}
 # At n >= 128 the reference holds blocked Cholesky to 1e-3 against the
 # oracle and blocked QR to 1e-3 (tests/test_variants.py).  The MMSE Gram
 # H^T H + 0.1 I at m = n + 4 has condition ~9.4e3 at n = 256, and fp32
@@ -113,10 +135,13 @@ ORACLE_RTOLS = {"cholesky_solve_blocked": MID_RTOL,
                 "qr_solve_tiled": TILED_RTOL,
                 "mmse_equalize_tiled": TILED_RTOL}
 # check key -> the kernel it runs (stage adapters run a kernel of their own)
-KERNEL_OF = {"pusch_fft": "fft", "svd_factor": "svd"}
+KERNEL_OF = {"pusch_fft": "fft", "svd_factor": "svd",
+             "trisolve_upper": "trisolve"}
 # (check key, registry spec, variant): the registry cases each kernel is
 # held to
 REGISTRY_CHECKS = (
+    ("cholesky", "cholesky", "base"), ("trisolve", "trisolve", "base"),
+    ("qr", "qr", "base"), ("fir", "fir", "base"),
     ("svd", "svd", "base"), ("fft", "fft", "base"),
     ("cholesky_solve", "cholesky_solve", "base"),
     ("cholesky_solve_blocked", "cholesky_solve", "blocked"),
@@ -135,7 +160,22 @@ REGISTRY_CHECKS = (
 # check keys held at B = LANES lanes of each of SLOT_SIZES
 SLOT_KEYS = ("cholesky_solve", "mmse_equalize", "mmse_equalize_split",
              "qr_solve", "channel_estimate", "pusch_chain", "pusch_fft",
-             "svd", "svd_factor", "svd_apply")
+             "svd", "svd_factor", "svd_apply", "cholesky", "trisolve",
+             "trisolve_upper", "qr")
+# K19 at full width: one 0.5 ms slot of one antenna at 122.88 Msps (the
+# sampling rate of a 100 MHz carrier) is 61,440 outputs, at the DSP
+# chain's 31 taps and at 65
+FIR_OUTPUTS = 61440
+FIR_TAPS = (31, 65)
+# the unfused baselines, their fused kernels and the reference's
+# fused-vs-unfused tolerances (tests/test_pipelines.py)
+BASELINES = (("cholesky_solve", "cholesky_solve_unfused", 1e-4),
+             ("qr_solve", "qr_solve_unfused", 1e-3),
+             ("mmse_equalize", "mmse_equalize_composed", 1e-4))
+BASELINE_LAUNCHES = {"cholesky_solve": {"cholesky": 1, "trisolve": 2},
+                     "qr_solve": {"qr": 1, "trisolve": 1},
+                     "mmse_equalize": {"cholesky": 1, "trisolve": 2}}
+DSP_LAUNCHES = {"cholesky": 1, "trisolve": 2, "fft": 1, "fir": 1, "svd": 1}
 # kernel -> its mid-range timing rows at B = LANES: (n, m or None for
 # n + 4, the form a two-form kernel must run); K2 at n = 128 is the
 # shared form the mid-range mix runs beside its global form at n = 256
@@ -222,16 +262,23 @@ def main():
     print(card, flush=True)
     print(f"clocks (sm, max sm, temperature, power draw): {clocks_line()}",
           flush=True)
+    # full float32 in every library product and in cuDNN's conv1d (the
+    # FIR oracle and yardstick), which would otherwise run in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; TF32 off "
+          f"(cuda.matmul.allow_tf32 = cudnn.allow_tf32 = False)", flush=True)
 
     from repro_torch import kernels as K
     from repro_torch import pipelines as pp
+    from repro_torch.kernels import cholesky as KC
     from repro_torch.kernels import common, ref
     from repro_torch.kernels import fft as F
+    from repro_torch.kernels import fir as KF
+    from repro_torch.kernels import qr as KQ
     from repro_torch.kernels import svd as S
+    from repro_torch.kernels import trisolve as KT
     from repro_torch.kernels.common import sample_spd
     from repro_torch.kernels.svd import spectrum_recon
 
@@ -262,7 +309,11 @@ def main():
              "svd": lambda a: spectrum_recon(*S.svd_fused(a, SWEEPS)),
              "svd_factor": lambda a: spectrum_recon(*pp.unpack_factors(
                  pp.svd_factor_fused(a))),
-             "svd_apply": pp.svd_apply_fused}
+             "svd_apply": pp.svd_apply_fused,
+             "cholesky": KC.cholesky_fused, "trisolve": KT.trisolve_fused,
+             "trisolve_upper": lambda l, b: KT.trisolve_fused(l, b,
+                                                              lower=False),
+             "qr": KQ.qr_fused, "fir": KF.fir_fused}
     plain = {"cholesky_solve": pp.cholesky_solve_plain,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_plain,
              "qr_solve_blocked": pp.qr_solve_blocked_plain,
@@ -279,7 +330,11 @@ def main():
              "svd": lambda a: spectrum_recon(*S.svd_plain(a, SWEEPS)),
              "svd_factor": lambda a: spectrum_recon(*pp.unpack_factors(
                  pp.svd_factor_plain(a))),
-             "svd_apply": pp.svd_apply_plain}
+             "svd_apply": pp.svd_apply_plain,
+             "cholesky": KC.cholesky_plain, "trisolve": KT.trisolve_plain,
+             "trisolve_upper": lambda l, b: KT.trisolve_plain(l, b,
+                                                              lower=False),
+             "qr": KQ.qr_plain, "fir": KF.fir_plain}
     oracle = {"cholesky_solve": ref.cholesky_solve,
               "cholesky_solve_blocked": ref.cholesky_solve,
               "qr_solve_blocked": ref.qr_solve,
@@ -295,7 +350,10 @@ def main():
               "pusch_fft": ref.pusch_fft,
               "svd": lambda a: (ref.svd_vals(a), a),
               "svd_factor": lambda a: (ref.svd_vals(a), a),
-              "svd_apply": ref.svd_apply}
+              "svd_apply": ref.svd_apply,
+              "cholesky": ref.cholesky, "trisolve": ref.trisolve,
+              "trisolve_upper": lambda l, b: ref.trisolve(l, b, lower=False),
+              "qr": ref.qr, "fir": ref.fir}
     if set(kern) != {KERNEL_OF.get(key, key) for key in fused}:
         fail(f"kernel set {sorted(kern)} != {sorted(fused)}")
     max_err = {name: 0.0 for name in kern}
@@ -381,7 +439,24 @@ def main():
             return (f(b, m, n),)
         if key == "svd_apply":          # factors of a real channel
             return pp.svd_factor_fused(f(b, m, n)), f(b, m, 2)
+        # the primitives: SPD systems, their factors with K1's two
+        # right-hand sides (L^T for the backward solve), (n + 4) x n QR
+        if key == "cholesky":
+            return (torch.from_numpy(sample_spd(rng, b, n)).to(dev),)
+        if key in ("trisolve", "trisolve_upper"):
+            l = torch.linalg.cholesky(torch.from_numpy(
+                sample_spd(rng, b, n)).to(dev))
+            return (l.mT if key == "trisolve_upper" else l).contiguous(), \
+                f(b, n, 2)
+        if key == "qr":
+            return (f(b, m, n),)
         raise KeyError(key)
+
+    def fir_case(rng, outputs, taps):
+        """A signal giving ``outputs`` valid outputs and symmetric taps."""
+        h = rng.standard_normal(taps).astype(np.float32)
+        return (rand(rng, outputs + taps - 1),
+                torch.from_numpy((h + h[::-1]) / 2).to(dev))
 
     # ---------------- 3. kernels against plain versions ----------------
     print("kernels vs plain versions and oracles:", flush=True)
@@ -629,6 +704,71 @@ def main():
         if not torch.equal(out, torch.zeros_like(out)):
             failures.append(f"{key}: filler lane n=512 not exactly 0")
 
+    # ---- the primitives: K15-K17 and K19 ----
+    print("primitive kernels (K15-K17, K19):", flush=True)
+    for n in K.get("trisolve").sizes:
+        l, b3 = (t.to(dev) for t in K.get("trisolve").make_case(rng, n))
+        check("trisolve_upper", (l.mT.contiguous(), b3), f"registry n={n}")
+    for taps in FIR_TAPS:
+        check("fir", fir_case(rng, FIR_OUTPUTS, taps),
+              f"{FIR_OUTPUTS} outputs, {taps} taps")
+    for outputs, taps in ((1000, 30), (1000, 31), (300, 1), (257, 2)):
+        check("fir", fir_case(rng, outputs, taps),
+              f"{outputs} outputs, {taps} taps")
+    # one lane past shared memory: the global form, in the output
+    past = {"cholesky": (256,), "trisolve": (256, 2),
+            "trisolve_upper": (256, 2), "qr": (260, 256)}
+    for key, dims in past.items():
+        k = kern[KERNEL_OF.get(key, key)]
+        if k.fits_shared(*dims):
+            fail(f"{key} at {dims} fits in shared memory")
+        before = k.launches_global
+        check(key, slot_case(key, rng, CHECK_LANES, 256),
+              f"global B={CHECK_LANES} n=256")
+        if k.launches_global != before + 1:
+            failures.append(f"{key} n=256: the global form did not run")
+    # both forms fit at n = 32: the global form equals the shared one
+    for key in past:
+        args = slot_case(key, rng, CHECK_LANES, 32)
+        shared = fused[key](*args)
+        with global_form(common):
+            glob = fused[key](*args)
+        same = all(torch.equal(x, y) for x, y in zip(
+            shared if isinstance(shared, tuple) else (shared,),
+            glob if isinstance(glob, tuple) else (glob,)))
+        print(f"  {key:<22} n=32: global form == shared form bit for bit: "
+              f"{same}", flush=True)
+        if not same:
+            failures.append(f"{key} n=32: global form != shared form")
+    # guard cases: NaN in the triangle a kernel never reads
+    a = torch.from_numpy(sample_spd(rng, 2, 16)).to(dev)
+    clean = KC.cholesky_fused(a)
+    poisoned = a.clone()
+    iu = torch.triu_indices(16, 16, offset=1)
+    poisoned[:, iu[0], iu[1]] = float("nan")
+    got, _ = check("cholesky", (poisoned,), "poisoned upper",
+                   oracle_args=(a,))
+    if not torch.equal(got, clean):
+        failures.append("cholesky: upper-triangle NaN leaked")
+    for key, off in (("trisolve", 1), ("trisolve_upper", -1)):
+        l, b3 = slot_case(key, rng, 2, 16)
+        clean = fused[key](l, b3)
+        poisoned = l.clone()
+        idx = torch.triu_indices(16, 16, offset=1)
+        if off < 0:
+            idx = idx.flip(0)             # the strict lower triangle
+        poisoned[:, idx[0], idx[1]] = float("nan")
+        got, _ = check(key, (poisoned, b3), "poisoned unread triangle",
+                       oracle_args=(l, b3))
+        if not torch.equal(got, clean):
+            failures.append(f"{key}: unread-triangle NaN leaked")
+    for m, n in ((17, 16), (33, 32), (1, 1)):
+        check("qr", (rand(rng, 64, m, n),), f"B=64 {m}x{n}")
+    a1 = rand(rng, 3, 1, 1)
+    q1, r1 = KQ.qr_fused(a1)
+    if not (torch.equal(q1, torch.ones_like(q1)) and torch.equal(r1, a1)):
+        failures.append("qr: m = 1 is not Q = I, R = A")
+
     for label, out in guards:
         finite = bool(torch.isfinite(out).all())
         print(f"  guard {label:<38} finite={finite}")
@@ -649,7 +789,12 @@ def main():
             k.launches = 0
             k.launches_global = 0
 
-    def read_launches(path: str, expect: tuple, expect_global=()):
+    def read_launches(path: str, expect: tuple, expect_global=(),
+                      exact: dict | None = None):
+        """Print and add up the launches since the last reset; fail if a
+        kernel in ``expect`` (a global form in ``expect_global``) never
+        launched or, given ``exact``, if the launched kernels and their
+        counts are not exactly those."""
         counts = {k.name: k.launches for k in common.KERNELS}
         glob = {k.name: k.launches_global for k in common.KERNELS
                 if k.launches_global}
@@ -660,6 +805,9 @@ def main():
             fail(f"a kernel of the {path} path never launched: {counts}")
         if not all(glob.get(name) for name in expect_global):
             fail(f"a global form of the {path} path never ran: {glob}")
+        if exact is not None and {n: c for n, c in counts.items() if c} \
+                != exact:
+            fail(f"the {path} path launched {counts}, not exactly {exact}")
         for name, c in counts.items():
             launches[name] += c
             launches_global[name] += glob.get(name, 0)
@@ -752,6 +900,45 @@ def main():
                    "mmse_equalize_tiled", "mmse_equalize_split"),
                   ("mmse_equalize_split",))
 
+    from repro_torch.launch import dsp_pipeline
+    for argv in ([], ["--batch", str(LANES), "--samples",
+                      str(FIR_OUTPUTS + FIR_TAPS[0] - 1)]):
+        reset_launches()
+        print(f"dsp_pipeline {' '.join(argv)}", flush=True)
+        errors = dsp_pipeline.main(argv)
+        print(f"  errors {json.dumps(errors)}", flush=True)
+        if not (errors["nmse"] < 1.0 and errors["fft_err"] < 1e-3
+                and errors["fir_err"] < 1e-4 and errors["svd_err"] < 1e-4):
+            fail(f"dsp_pipeline {argv}: {errors}")
+        read_launches(f"DSP chain {' '.join(argv) or 'defaults'}",
+                      tuple(DSP_LAUNCHES), exact=DSP_LAUNCHES)
+
+    def baseline_case(name, n):
+        """The inputs of the reference's fused-vs-unfused tests
+        (tests/test_pipelines.py: SPD systems, (n + 4) x n matrices, two
+        right-hand sides) at a carrier's width."""
+        if name == "cholesky_solve":
+            return (torch.from_numpy(sample_spd(rng, LANES, n)).to(dev),
+                    rand(rng, LANES, n, 2))
+        return rand(rng, LANES, n + 4, n), rand(rng, LANES, n + 4, 2)
+
+    # the unfused baselines against their fused kernels
+    for name, base, tol in BASELINES:
+        for n in SLOT_SIZES:
+            args = baseline_case(name, n)
+            reset_launches()
+            got = getattr(pp, base)(*args)
+            torch.cuda.synchronize()
+            read_launches(f"{base} B={LANES} n={n}",
+                          tuple(BASELINE_LAUNCHES[name]),
+                          exact=BASELINE_LAUNCHES[name])
+            ok, err = close(got, fused[name](*args), tol)
+            print(f"  {base:<24} B={LANES} n={n}: |unfused-fused| "
+                  f"{err:.3e} (rtol {tol:g}) {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok:
+                fail(f"{base} n={n} differs from {name}: {err:.3e}")
+
     # ---------------- 5. times ----------------
     flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
 
@@ -789,6 +976,22 @@ def main():
         cost model, not bound it).  A blocked kernel computes its base
         kernel's function, so it has the same least work."""
         key = key.removesuffix("_blocked").removesuffix("_tiled")
+        if key == "fir":                       # whole shapes, one signal
+            (nx,), (taps,) = shapes
+            out = nx - taps + 1
+            return (4 * (nx + taps + out),
+                    out * (3 * (taps // 2) + 2 * (taps % 2)))
+        if key == "cholesky":                  # reads the lower triangle
+            n = shapes[0][0]
+            return 4 * (n * (n + 1) // 2 + n * n), n ** 3 / 3
+        if key in ("trisolve", "trisolve_upper"):
+            (n, _), (_, k) = shapes            # reads one triangle
+            return 4 * (n * (n + 1) // 2 + 2 * n * k), n * n * k
+        if key == "qr":                        # Householder R, then Q
+            m, n = shapes[0]                   # from I, columns >= k
+            return (4 * (m * n + m * m + m * n),
+                    2 * m * n * n - 2 * n ** 3 / 3 + 4 * m * m * n
+                    - 2 * m * n * n)
         if key in ("fft", "pusch_fft"):
             nf = shapes[0][-1]
             rows = shapes[0][0] if key == "pusch_fft" else 1
@@ -857,6 +1060,16 @@ def main():
             return lambda: torch.fft.fft(z)
         if key == "svd_factor":
             return lambda: torch.linalg.svd(args[0], full_matrices=False)
+        if key == "cholesky":
+            return lambda: torch.linalg.cholesky_ex(args[0]).L
+        if key in ("trisolve", "trisolve_upper"):
+            return lambda: torch.linalg.solve_triangular(
+                *args, upper=key == "trisolve_upper")
+        if key == "qr":
+            return lambda: torch.linalg.qr(args[0], mode="complete")
+        if key == "fir":                       # cuDNN with TF32 off (above)
+            return lambda: torch.nn.functional.conv1d(args[0][None, None],
+                                                      args[1][None, None])
         return None
 
     # the timed call of each kernel: its main-path entry point, returning
@@ -870,27 +1083,37 @@ def main():
     rows = []
     for name, k in kern.items():
         key = timed.get(name, name)
-        kfn, pfn = calls.get(key, (fused[key], plain[key]))
+        # (label, n, form, lanes, make, the key of the timed call)
         cases = [(f"n={n}", n, None, LANES,
-                  lambda n=n: slot_case(key, rng, LANES, n))
+                  lambda n=n: slot_case(key, rng, LANES, n), key)
                  for n in SLOT_SIZES if key in SLOT_KEYS]
+        if name == "trisolve":
+            cases += [(f"upper n={n}", n, None, LANES,
+                       lambda n=n: slot_case("trisolve_upper", rng, LANES,
+                                             n), "trisolve_upper")
+                      for n in SLOT_SIZES]
+        if name == "fir":                  # one signal: lanes = 1
+            cases += [(f"{taps} taps", None, None, 1,
+                       lambda taps=taps: fir_case(rng, FIR_OUTPUTS, taps),
+                       "fir") for taps in FIR_TAPS]
         if name == "fft":
             cases.append((f"nf={NFFT_MAX}", None, None, LANES,
                           lambda: (rand(rng, LANES, NFFT_MAX),
-                                   rand(rng, LANES, NFFT_MAX))))
+                                   rand(rng, LANES, NFFT_MAX)), "fft"))
         for n, m, form in MID_TIMES.get(name, ()):
             cases.append((f"n={n}" + (f" {form}" if form else ""), n, form,
-                          LANES, lambda n=n, m=m: mid_case(key, LANES, n, m)))
+                          LANES, lambda n=n, m=m: mid_case(key, LANES, n, m),
+                          key))
         if name in TILED_TIMES:
             cases += [(f"n={n} B={b}", n, None, b,
-                       lambda n=n, b=b: mid_case(key, b, n))
+                       lambda n=n, b=b: mid_case(key, b, n), key)
                       for n, b in TILED_CASES]
         sweep = []
-        for label, n, form, lanes, make in cases:
+        for label, n, form, lanes, make, tkey in cases:
             args = make()
-            tkey = key if label != f"nf={NFFT_MAX}" else "fft"
-            tk, tp_ = calls.get(tkey, (kfn, pfn))
-            shapes = tuple(tuple(a.shape[1:]) for a in args)
+            tk, tp_ = calls.get(tkey, (fused[tkey], plain[tkey]))
+            shapes = tuple(tuple(a.shape if lanes == 1 else a.shape[1:])
+                           for a in args)
             lane_bytes, lane_flops = work(tkey, shapes)
             nbytes, flops = lanes * lane_bytes, lanes * lane_flops
             t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
@@ -923,8 +1146,9 @@ def main():
             del args
         if key in SLOT_KEYS:
             head = next(r for r in sweep if r["n"] == SLOT_SIZES[-1])
-        else:               # the tiled kernels' head row is n = 512
-            head = sweep[0] if name in TILED_TIMES else sweep[-1]
+        else:       # the tiled kernels' head row is n = 512, K19's 31 taps
+            head = sweep[0] if name in TILED_TIMES or name == "fir" \
+                else sweep[-1]
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
@@ -941,8 +1165,30 @@ def main():
                    ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             fail(f"non-finite measurement for {r['name']}")
 
+    # the fusion block: each unfused chain's wall (events around the
+    # whole chain) beside its fused kernel, on the same inputs
+    fusion = []
+    for name, base, _ in BASELINES:
+        for n in SLOT_SIZES:
+            args = baseline_case(name, n)
+            chain_ms, chain_max, reps = time_ms(
+                lambda: getattr(pp, base)(*args), 30)
+            fused_ms, _, fused_reps = time_ms(lambda: fused[name](*args), 30)
+            fusion.append({
+                "chain": base, "fused": name, "n": n, "lanes": LANES,
+                "shapes": [list(a.shape[1:]) for a in args],
+                "unfused_ms": chain_ms, "unfused_ms_max": chain_max,
+                "fused_ms": fused_ms, "ratio": chain_ms / fused_ms,
+                "reps": reps, "fused_reps": fused_reps,
+                "unfused_launches": BASELINE_LAUNCHES[name]})
+            print(f"  fusion {base:<24} n={n:<3} unfused chain "
+                  f"{chain_ms:.4f} ms  fused {name} {fused_ms:.4f} ms  "
+                  f"unfused/fused {chain_ms / fused_ms:.2f}", flush=True)
+            del args
+
     print(f"clocks after timing (sm, max sm, temperature, power draw): "
           f"{clocks_line()}", flush=True)
+    print(json.dumps({"fusion": fusion}))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

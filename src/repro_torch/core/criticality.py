@@ -5,15 +5,21 @@ REVEL splits its fabric into a dedicated (critical) and temporal
 bulk update, the non-critical one the sqrt/div point chains.  This
 module holds the planning arithmetic the served DAGs use
 (``DagSpec.criticality``): given per-region work estimates, decide which
-regions are critical.  The arithmetic is the reference's
+regions are critical; and the reference's MXU-tile padding arithmetic
+(:func:`mxu_padded`, :func:`dedicated_efficiency`), kept as it computes
+it on the TPU's 128-wide tiles.  The arithmetic is the reference's
 (``repro/core/criticality.py``) operation for operation, because the
 mux's event stream records its result.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
-__all__ = ["RegionCost", "plan_split"]
+__all__ = ["RegionCost", "plan_split", "mxu_padded", "dedicated_efficiency",
+           "MXU_DIM"]
+
+MXU_DIM = 128      # the reference's TPU MXU systolic dimension
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,3 +51,15 @@ def plan_split(regions: list[RegionCost], threshold: float = 0.25):
         crit = [biggest.name]
         non = [r.name for r in regions if r.name != biggest.name]
     return crit, non
+
+
+def mxu_padded(n: int, dim: int = MXU_DIM) -> int:
+    """Tile-aligned size the MXU would execute for an n-wide op."""
+    return max(dim, math.ceil(n / dim) * dim)
+
+
+def dedicated_efficiency(n: int, dim: int = MXU_DIM) -> float:
+    """Utilization if a point/vector region were forced onto MXU tiles —
+    the quantitative version of 'don't waste FP units on non-critical
+    dataflows' (paper Q9)."""
+    return n / mxu_padded(n, dim)

@@ -1,6 +1,7 @@
 """The kernel registry — the single enumeration point for tests,
 benchmarks and serving — for the served solver pipelines, the served
-pipeline DAGs and the kernels they run.
+pipeline DAGs, the kernels they run and the primitive kernels of
+``ops`` (``kind="kernel"``).
 
 Every pipeline registers a ``KernelSpec`` binding together its kernel
 entry point (``repro_torch.pipelines.*_fused``: the hand-written CUDA
@@ -395,12 +396,39 @@ def _register_all() -> None:
     from repro_torch import pipelines as pp
     from repro_torch.core.streams import inductive, rect
     from repro_torch.kernels import ref
+    from repro_torch.kernels.cholesky import cholesky_fused
     from repro_torch.kernels.common import sample_spd as _spd
     from repro_torch.kernels.fft import fft_fused
+    from repro_torch.kernels.fir import fir_fused
+    from repro_torch.kernels.qr import qr_fused
     from repro_torch.kernels.svd import spectrum_recon, svd_fused
+    from repro_torch.kernels.trisolve import trisolve_fused
 
     tri_ri = lambda n: inductive(outer_trip=n, inner_base=n,
                                  inner_stretch=-1)
+
+    # ---------------- factorizations (the primitives) ----------------
+    register(KernelSpec(
+        name="cholesky", kernel=cholesky_fused, run_oracle=ref.cholesky,
+        make_case=lambda rng, n: (_tensor(_spd(rng, 2, n)),),
+        stream=tri_ri, sizes=(8, 12, 16, 24, 32), kind="kernel"))
+
+    def _tri_case(rng, n):
+        l = np.linalg.cholesky(_spd(rng, 2, n))
+        b = rng.standard_normal((2, n, 3)).astype(np.float32)
+        return _tensor(l), _tensor(b)
+
+    register(KernelSpec(
+        name="trisolve", kernel=trisolve_fused,
+        run_oracle=lambda l, b: ref.trisolve(l, b, lower=True),
+        make_case=_tri_case, stream=tri_ri, sizes=(8, 12, 16, 24, 32),
+        rtol=1e-3, kind="kernel"))
+
+    register(KernelSpec(
+        name="qr", kernel=qr_fused, run_oracle=ref.qr,
+        make_case=lambda rng, n: (_tensor(
+            rng.standard_normal((2, n + 4, n)).astype(np.float32)),),
+        stream=tri_ri, sizes=(8, 12, 16, 24), kind="kernel"))
 
     # ---------------- kernels the served DAGs run ----------------
     def _svd_adapter(a):
@@ -424,6 +452,17 @@ def _register_all() -> None:
         stream=lambda n: inductive(outer_trip=n, inner_base=n - 1,
                                    inner_stretch=-1),
         sizes=(8, 12, 16), rtol=svd_rtol, kind="kernel"))
+
+    def _fir_case(rng, n):
+        x = rng.standard_normal((16 * n,)).astype(np.float32)
+        h = rng.standard_normal((9,)).astype(np.float32)
+        h = (h + h[::-1]) / 2
+        return _tensor(x), _tensor(h)
+
+    register(KernelSpec(
+        name="fir", kernel=fir_fused, run_oracle=ref.fir,
+        make_case=_fir_case, stream=lambda n: rect(16 * n - 8, 9),
+        sizes=(8, 16, 32), kind="kernel"))
 
     register(KernelSpec(
         name="fft", kernel=fft_fused,

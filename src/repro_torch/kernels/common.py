@@ -195,8 +195,9 @@ class CudaKernel:
     ``work_symbol(dims...) -> size_t`` (floats per lane).
 
     A kernel with a global form keeps a lane in shared memory when it
-    fits and, past :data:`MAX_SMEM_BYTES`, in a device work buffer; a
-    launch given that buffer runs the global form.
+    fits and, past :data:`MAX_SMEM_BYTES`, in device memory: a work
+    buffer (K1-K4) or its own output (K15-K17); a launch given that
+    memory as ``work`` runs the global form.
 
     ``launches`` counts the kernel's launches in this process; it rises
     by one where :meth:`launch` launches the kernel and nowhere else, so
@@ -247,22 +248,28 @@ class CudaKernel:
         self._bind()
         return int(self._smem_fn(*dims))
 
+    def fits_shared(self, *dims: int) -> bool:
+        """Whether one lane at ``dims`` fits in :data:`MAX_SMEM_BYTES`
+        (read at each call) in the kernel's shared form."""
+        return self.smem_bytes(*dims) <= MAX_SMEM_BYTES
+
     def work_buffer(self, device: torch.device, batch: int,
                     *dims: int) -> torch.Tensor | None:
         """The device work buffer of the global form for ``batch`` lanes
         at per-lane ``dims``, or None when the kernel has no global form
         or the lane fits in :data:`MAX_SMEM_BYTES` (read at each call).
         Chosen from the shape alone, before the launch."""
-        if self.work_symbol is None \
-                or self.smem_bytes(*dims) <= MAX_SMEM_BYTES:
+        if self.work_symbol is None or self.fits_shared(*dims):
             return None
         return torch.empty(batch * int(self._work_fn(*dims)),
                            dtype=torch.float32, device=device)
 
     def launch(self, device: torch.device, smem_dims: tuple, *args,
                work: torch.Tensor | None = None) -> None:
-        """Launch on ``device``'s current stream; ``work`` is the buffer
-        from :meth:`work_buffer` (its pointer is among ``args``).  Raise
+        """Launch on ``device``'s current stream; ``work`` is the device
+        memory the global form works in (its pointer is among ``args``):
+        the buffer from :meth:`work_buffer` or, for a kernel whose global
+        form works in its own output (K15-K17), that output.  Raise
         when the lane does not fit in shared memory (in the global form
         only the per-step scratch is shared), the card is not a Hopper,
         or the launch is refused.  Never synchronises."""
@@ -271,7 +278,7 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.name}: the kernels are built for sm_90a; "
                 f"{torch.cuda.get_device_name(device)} is not a Hopper card")
-        global_form = self.work_symbol is not None and work is not None
+        global_form = work is not None
         smem = self.smem_bytes(*smem_dims)
         if not global_form and smem > MAX_SMEM_BYTES:
             raise ValueError(

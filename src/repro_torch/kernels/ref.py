@@ -2,14 +2,52 @@
 run — the ground truth for allclose tests and the serving stack's
 per-job spot check.
 
-These are deliberately unfused library calls (``torch.linalg``, ``torch.fft``),
-the counterparts of the reference's ``repro/kernels/ref.py`` oracles.
-This module is the only place in the package that calls them; no served
-path does.
+These are deliberately unfused library calls (``torch.linalg``,
+``torch.fft``, ``conv1d``) and, for the QR, the Householder loop in
+unfused tensor ops, the counterparts of the reference's
+``repro/kernels/ref.py`` oracles (and of its ``backend="xla"`` paths:
+a caller that wants one calls it by name).  This module is the only place
+in the package that calls them; no kernel path does.
 """
 from __future__ import annotations
 
 import torch
+
+
+# ---------------- factorizations ----------------
+
+def cholesky(a: torch.Tensor) -> torch.Tensor:
+    """(B, N, N) SPD -> lower L."""
+    return torch.linalg.cholesky(a)
+
+
+def trisolve(l: torch.Tensor, b: torch.Tensor, *,
+             lower: bool = True) -> torch.Tensor:
+    """(B,N,N) triangular x (B,N,M) -> y with l @ y = b."""
+    return torch.linalg.solve_triangular(l, b, upper=not lower)
+
+
+def qr(a: torch.Tensor):
+    """Householder QR, the same math as the kernel but unfused, every
+    lane at once: a (B, M, N) -> (Q (B,M,M), triu(R) (B,M,N)).  Not
+    ``torch.linalg.qr``, whose reflector signs may differ."""
+    bsz, m, n = a.shape
+    q = torch.eye(m, dtype=a.dtype, device=a.device).repeat(bsz, 1, 1)
+    r = a
+    rows = torch.arange(m, device=a.device)
+    for k in range(min(n, m - 1) if m > 1 else 0):
+        x = torch.where(rows >= k, r[:, :, k], 0.0)
+        xk = r[:, k, k]
+        norm = torch.linalg.vector_norm(x, dim=-1)
+        alpha = torch.where(xk >= 0, -norm, norm)
+        v = x - alpha[:, None] * (rows == k).to(r.dtype)
+        vnorm2 = torch.clamp_min(torch.einsum("bm,bm->b", v, v), 1e-30)
+        tau = torch.where(norm < 1e-30, 0.0, 2.0 / vnorm2)
+        w = tau[:, None] * torch.einsum("bm,bmn->bn", v, r)
+        r = r - v[:, :, None] * w[:, None, :]
+        u = tau[:, None] * torch.einsum("bmj,bj->bm", q, v)
+        q = q - u[:, :, None] * v[:, None, :]
+    return q, torch.triu(r[:, :, :n])
 
 
 def cholesky_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -103,6 +141,13 @@ def ridge_solve(a: torch.Tensor, b: torch.Tensor, *,
     g = torch.einsum("bmi,bmj->bij", a, a) \
         + lam * torch.eye(n, dtype=a.dtype, device=a.device)
     return torch.linalg.solve(g, torch.einsum("bmn,bmk->bnk", a, b))
+
+
+def fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Valid-mode correlation-style FIR matching the kernel tap order:
+    y[i] = sum_j h[j] * x[i + j].  On a CUDA tensor cuDNN computes it in
+    TF32 unless ``torch.backends.cudnn.allow_tf32`` is False."""
+    return torch.nn.functional.conv1d(x[None, None], h[None, None])[0, 0]
 
 
 def fft(x_re: torch.Tensor, x_im: torch.Tensor):

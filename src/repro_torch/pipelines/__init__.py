@@ -22,6 +22,14 @@ lane, written by hand for Hopper (``src/repro_torch/csrc/``):
   qr_solve_tiled       K13 — K11 the same way, global-threshold back-sub
   mmse_equalize_tiled  K14 — tiled Gram + matched filter, K12's phases
 
+Beside them the unfused baselines the fused kernels are measured
+against, each a chain of primitive kernels (``repro_torch.kernels``)
+with its intermediates in device memory:
+
+  cholesky_solve_unfused  K15, K16 forward, K16 backward on L^T
+  qr_solve_unfused        K17, a library Q^T b, K16 backward
+  mmse_equalize_composed  library Gram and H^T y, then the Cholesky chain
+
 Each module holds the kernel's wrapper (``*_fused``: the kernel on a
 CUDA tensor, the plain version on a CPU tensor), its plain PyTorch
 version (``*_plain``), and a device-taking public wrapper.  The kernel
@@ -32,9 +40,11 @@ from repro_torch.pipelines.cholesky_solve import (  # noqa: F401
     cholesky_solve_blocked_fits, cholesky_solve_blocked_fused,
     cholesky_solve_blocked_plain, cholesky_solve_fused, cholesky_solve_plain, cholesky_solve_tiled,
     cholesky_solve_tiled_fused, cholesky_solve_tiled_plain,
+    cholesky_solve_unfused,
     tiled_block_size, tiled_vmem_floats)
 from repro_torch.pipelines.mmse import (  # noqa: F401
     expand_complex_channel, mmse_equalize, mmse_equalize_blocked,
+    mmse_equalize_composed,
     mmse_equalize_fused, mmse_equalize_plain, mmse_equalize_split,
     mmse_equalize_split_fused, mmse_equalize_split_plain,
     mmse_equalize_tiled, mmse_equalize_tiled_fused,
@@ -48,7 +58,8 @@ from repro_torch.pipelines.pusch import (  # noqa: F401
 from repro_torch.pipelines.qr_solve import (  # noqa: F401
     qr_solve, qr_solve_blocked, qr_solve_blocked_fits,
     qr_solve_blocked_fused, qr_solve_blocked_plain, qr_solve_fused, qr_solve_plain, qr_solve_tiled,
-    qr_solve_tiled_fused, qr_solve_tiled_plain, qr_tiled_vmem_floats)
+    qr_solve_tiled_fused, qr_solve_tiled_plain, qr_solve_unfused,
+    qr_tiled_vmem_floats)
 
 __all__ = [
     "cholesky_solve", "cholesky_solve_fused", "cholesky_solve_plain",
@@ -68,6 +79,7 @@ __all__ = [
     "mmse_equalize_tiled", "mmse_equalize_tiled_fused",
     "mmse_equalize_tiled_plain", "mmse_tiled_vmem_floats",
     "mmse_equalize_blocked",
+    "cholesky_solve_unfused", "qr_solve_unfused", "mmse_equalize_composed",
     "channel_estimate", "channel_estimate_fused", "channel_estimate_plain",
     "pusch_chain", "pusch_chain_fused", "pusch_chain_plain",
     "pusch_fft", "pusch_fft_fused", "pusch_fft_plain",

@@ -28,8 +28,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import common
+from repro_torch.kernels.cholesky import cholesky_fused
 from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
+from repro_torch.kernels.trisolve import trisolve_fused
 
 # Relative pivot threshold (LAPACK pstrf-style): a pivot below
 # eps * max(diag(A)) marks a numerically deficient direction.  Residual
@@ -164,6 +166,19 @@ def cholesky_solve(a, b, *, device=None) -> torch.Tensor:
     dev = resolve_device(device)
     return cholesky_solve_fused(torch.as_tensor(a, device=dev).contiguous(),
                                 torch.as_tensor(b, device=dev).contiguous())
+
+
+def cholesky_solve_unfused(a: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """The no-fusion baseline: factor, then solve, as THREE kernel
+    launches — K15, K16 forward, K16 backward on the materialised L^T —
+    with L, the forward solution and L^T round-tripping through device
+    memory between them.  Same math as K1 without its pivot guard; this
+    is what the fused kernel is measured against.  a (B,N,N), b (B,N,M)
+    float32 tensors (the plain versions on CPU tensors)."""
+    l = cholesky_fused(a)
+    z = trisolve_fused(l, b, lower=True)
+    return trisolve_fused(l.mT.contiguous(), z, lower=False)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,7 @@ from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
 from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
                                                   cholesky_chain_plain,
+                                                  cholesky_solve_unfused,
                                                   tiled_admit,
                                                   tiled_chain_plain)
 
@@ -180,6 +181,19 @@ def mmse_equalize_split(hr, hi, yr, yi, *, sigma2: float = 0.1,
     return mmse_equalize_split_fused(
         *(torch.as_tensor(p, device=dev).contiguous()
           for p in (hr, hi, yr, yi)), sigma2=sigma2)
+
+
+def mmse_equalize_composed(h: torch.Tensor, y: torch.Tensor, *,
+                           sigma2: float = 0.1) -> torch.Tensor:
+    """Kernel-at-a-time baseline: library products for G = H^T H + s I
+    and H^T y (outside any kernel, as in the reference), then the three
+    launches of :func:`cholesky_solve_unfused` — every intermediate hits
+    device memory.  h (B,M,N), y (B,M,K) float32 tensors."""
+    n = h.shape[-1]
+    g = torch.einsum("bmi,bmj->bij", h, h) \
+        + sigma2 * torch.eye(n, dtype=h.dtype, device=h.device)
+    rhs = torch.einsum("bmn,bmk->bnk", h, y)
+    return cholesky_solve_unfused(g.contiguous(), rhs.contiguous())
 
 
 def expand_complex_channel(hr: torch.Tensor, hi: torch.Tensor,

@@ -29,6 +29,8 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
+from repro_torch.kernels.qr import qr_fused
+from repro_torch.kernels.trisolve import trisolve_fused
 from repro_torch.pipelines.cholesky_solve import block_size, tiled_admit
 
 DEFAULT_TINY = 1e-20
@@ -147,6 +149,19 @@ def qr_solve(a, b, *, device=None) -> torch.Tensor:
     dev = resolve_device(device)
     return qr_solve_fused(torch.as_tensor(a, device=dev).contiguous(),
                           torch.as_tensor(b, device=dev).contiguous())
+
+
+def qr_solve_unfused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """No-fusion baseline: the explicit Q and R of K17, a library product
+    for Q^T b (outside any kernel, as in the reference), and K16's back
+    substitution on the materialised R[:n, :n] — Q, R and Q^T b
+    round-trip through device memory.  a (B,M,N), b (B,M,K) float32
+    tensors (the plain versions on CPU tensors)."""
+    q, r = qr_fused(a)
+    n = a.shape[-1]
+    qtb = torch.einsum("bmk,bmj->bkj", q, b)[:, :n]
+    return trisolve_fused(r[:, :n, :n].contiguous(), qtb.contiguous(),
+                          lower=False)
 
 
 # ---------------------------------------------------------------------------

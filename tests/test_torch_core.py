@@ -43,3 +43,14 @@ def test_region_graph_validates_as_the_reference():
         TD.RegionGraph(regions=[TD.Region("a", fn=None)], deps=[])
     with pytest.raises(ValueError, match="critical"):
         RD.RegionGraph(regions=[RD.Region("a", fn=None)], deps=[])
+
+
+def test_mxu_padding_arithmetic_matches_reference():
+    """``mxu_padded`` and ``dedicated_efficiency`` on the reference's
+    128-wide MXU tiles, equal to the reference's values over n = 1..600
+    (and at another tile width)."""
+    assert TC.MXU_DIM == RC.MXU_DIM == 128
+    for n in range(1, 601):
+        assert TC.mxu_padded(n) == RC.mxu_padded(n)
+        assert TC.dedicated_efficiency(n) == RC.dedicated_efficiency(n)
+        assert TC.mxu_padded(n, 32) == RC.mxu_padded(n, 32)

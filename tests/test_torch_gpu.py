@@ -1,8 +1,9 @@
-"""The hand-written Hopper kernels (K1-K14) on the card, held against
-their plain PyTorch versions on the same card inputs, K1-K4 on lanes
-past shared memory (their global form), the tiled K12-K14 with slabs
-streamed past shared memory, and the served DAGs' golden replay on the
-card.
+"""The hand-written Hopper kernels (K1-K17, K19) on the card, held
+against their plain PyTorch versions on the same card inputs, K1-K4 and
+K15-K17 on lanes past shared memory (their global form), the tiled
+K12-K14 with slabs streamed past shared memory, the served DAGs' golden
+replay, and the launch counts of the unfused baselines and the DSP
+chain on the card.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
@@ -19,8 +20,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels as TK  # noqa: E402
 from repro_torch import pipelines as tp  # noqa: E402
+from repro_torch.kernels import cholesky as tchol  # noqa: E402
 from repro_torch.kernels import fft as tfft  # noqa: E402
+from repro_torch.kernels import fir as tfir  # noqa: E402
+from repro_torch.kernels import qr as tqr  # noqa: E402
 from repro_torch.kernels import svd as tsvd  # noqa: E402
+from repro_torch.kernels import trisolve as ttri  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.common import KERNELS, on_hopper  # noqa: E402
 from repro_torch.serve import ManualClock, SolverMux  # noqa: E402
@@ -546,3 +551,162 @@ def test_tiled_1024_bucket_demotes_past_blocked_rung_to_base(hopper, name):
         want = TK.get(name).run_oracle_lane(*job.args)
         assert_close(job.out, np.asarray(want), rtol=2e-3,
                      name=f"demoted-{name}")
+
+
+# ---------------- the primitive kernels (K15-K17, K19) ----------------
+
+PRIM_PAIRS = {"cholesky": (tchol.cholesky_fused, tchol.cholesky_plain),
+              "trisolve": (ttri.trisolve_fused, ttri.trisolve_plain),
+              "qr": (tqr.qr_fused, tqr.qr_plain),
+              "fir": (tfir.fir_fused, tfir.fir_plain)}
+
+
+def _pieces(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("kernel", sorted(PRIM_PAIRS))
+def test_primitive_kernel_matches_plain_version(hopper, kernel):
+    """K15-K17 and K19 at every registry size (K16 also backward, on the
+    transposed triangle) against their plain versions on the same card
+    inputs, one launch each."""
+    fused, plain = PRIM_PAIRS[kernel]
+    spec = TK.get(kernel)
+    for n in spec.sizes:
+        args = [a.to(hopper) for a in spec.make_case(
+            np.random.default_rng(n), n)]
+        calls = [((), {})]
+        if kernel == "trisolve":
+            calls.append(((args[0].mT.contiguous(), args[1]),
+                          {"lower": False}))
+        for override, kw in calls:
+            call_args = override or args
+            before = _launches(kernel)
+            got = fused(*call_args, **kw)
+            torch.cuda.synchronize()
+            assert _launches(kernel) == before + 1
+            for g, w in zip(_pieces(got), _pieces(plain(*call_args, **kw))):
+                assert_close(g.cpu().numpy(), w.cpu().numpy(),
+                             rtol=spec.rtol, name=f"{kernel} n={n} {kw}")
+
+
+def _primitive_case(dev, kernel, b, n, seed=0):
+    """K15 on SPD systems (sample_spd), K16 on their factors with two
+    right-hand sides, K17 on Gaussian (n + 4) x n matrices."""
+    rng = np.random.default_rng(seed)
+    from repro_torch.kernels.common import sample_spd
+    if kernel == "qr":
+        return (torch.from_numpy(rng.standard_normal(
+            (b, n + 4, n)).astype(np.float32)).to(dev),)
+    a = torch.from_numpy(sample_spd(rng, b, n)).to(dev)
+    if kernel == "cholesky":
+        return (a,)
+    rhs = torch.from_numpy(rng.standard_normal((b, n, 2)).astype(
+        np.float32)).to(dev)
+    return tchol.cholesky_plain(a), rhs
+
+
+@pytest.mark.parametrize("kernel,lower", [("cholesky", None),
+                                          ("trisolve", True),
+                                          ("trisolve", False),
+                                          ("qr", None)])
+def test_primitive_past_shared_memory_runs_global_form(hopper, kernel,
+                                                       lower):
+    """A lane at n = 256 (m = 260 for QR) is more than a CTA's shared
+    memory: the kernel works in its output in device memory (the global
+    form, counted in ``launches_global``) and agrees with its plain
+    version."""
+    fused, plain = PRIM_PAIRS[kernel]
+    args = _primitive_case(hopper, kernel, 4, 256, seed=256)
+    kw = {}
+    if lower is not None:
+        kw = {"lower": lower}
+        if not lower:
+            args = (args[0].mT.contiguous(), args[1])
+    k = next(k for k in KERNELS if k.name == kernel)
+    assert not k.fits_shared(*((256, 2) if kernel == "trisolve" else
+                               (260, 256) if kernel == "qr" else (256,)))
+    before = k.launches_global
+    got = fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert k.launches_global == before + 1
+    for g, w in zip(_pieces(got), _pieces(plain(*args, **kw))):
+        assert_close(g.cpu().numpy(), w.cpu().numpy(),
+                     rtol=TK.get(kernel).rtol, name=f"{kernel} n=256")
+
+
+@pytest.mark.parametrize("kernel,lower", [("cholesky", None),
+                                          ("trisolve", True),
+                                          ("trisolve", False),
+                                          ("qr", None)])
+def test_primitive_global_form_equals_shared_form_bit_for_bit(
+        hopper, monkeypatch, kernel, lower):
+    """At n = 32 both forms fit: the global form (forced by a shared-
+    memory limit of 0) gives the shared form's answer bit for bit."""
+    fused, _ = PRIM_PAIRS[kernel]
+    args = _primitive_case(hopper, kernel, 64, 32, seed=32)
+    kw = {} if lower is None else {"lower": lower}
+    k = next(k for k in KERNELS if k.name == kernel)
+    before = k.launches_global
+    shared = _pieces(fused(*args, **kw))
+    assert k.launches_global == before
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", 0)
+    glob = _pieces(fused(*args, **kw))
+    torch.cuda.synchronize()
+    assert k.launches_global == before + 1
+    assert all(torch.equal(s, g) for s, g in zip(shared, glob))
+
+
+@pytest.mark.parametrize("samples,taps", [(61470, 31), (61504, 65),
+                                          (1000, 30), (300, 1)])
+def test_fir_kernel_equals_plain_bit_for_bit(hopper, samples, taps):
+    """K19 rounds each sum and product separately, in the plain version's
+    order: the two agree bit for bit, also on a ragged last tile."""
+    rng = np.random.default_rng(taps)
+    x = torch.from_numpy(rng.standard_normal(samples).astype(
+        np.float32)).to(hopper)
+    h = rng.standard_normal(taps).astype(np.float32)
+    h = torch.from_numpy((h + h[::-1]) / 2).to(hopper)
+    got = tfir.fir_fused(x, h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tfir.fir_plain(x, h))
+
+
+def _reset_launches():
+    for k in KERNELS:
+        k.launches = k.launches_global = 0
+
+
+@pytest.mark.parametrize("name,expect", [
+    ("cholesky_solve", {"cholesky": 1, "trisolve": 2}),
+    ("qr_solve", {"qr": 1, "trisolve": 1}),
+    ("mmse_equalize", {"cholesky": 1, "trisolve": 2})])
+def test_unfused_baseline_launch_counts(hopper, name, expect):
+    """Each unfused baseline runs as its chain of primitive kernels and
+    nothing else, and agrees with its fused kernel at the reference's
+    tolerance (1e-4; 1e-3 for QR)."""
+    unfused = {"cholesky_solve": tp.cholesky_solve_unfused,
+               "qr_solve": tp.qr_solve_unfused,
+               "mmse_equalize": tp.mmse_equalize_composed}[name]
+    fused = PAIRS[name][0]
+    args = _card_case(hopper, name, 64, 16, seed=16)
+    _reset_launches()
+    got = unfused(*args)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    assert counts == expect
+    assert_close(got.cpu().numpy(), fused(*args).cpu().numpy(),
+                 rtol=1e-3 if name == "qr_solve" else 1e-4, name=name)
+
+
+def test_dsp_pipeline_launches_its_five_kernels(hopper, capsys):
+    """The DSP chain at the reference's defaults: K15 once, K16 twice,
+    K7, K19 and K8 once each, nothing else, and finite errors."""
+    from repro_torch.launch import dsp_pipeline
+    _reset_launches()
+    errors = dsp_pipeline.main([])
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    assert counts == {"cholesky": 1, "trisolve": 2, "fft": 1, "fir": 1,
+                      "svd": 1}
+    assert capsys.readouterr().out.rstrip().endswith("pipeline OK.")
+    assert errors["nmse"] < 1.0 and errors["fir_err"] < 1e-4

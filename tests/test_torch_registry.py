@@ -15,14 +15,17 @@ from repro_torch import pipelines as tp  # noqa: E402
 from repro_torch.serve import ManualClock, SolverMux  # noqa: E402
 
 SPECS = ["cholesky_solve", "qr_solve", "mmse_equalize"]
-DAG_SPECS = ["svd", "fft", "pusch_fft", "pusch_chanest", "pusch_chain",
-             "svd_factor", "svd_apply"]
+# the kernel specs (the primitives and the DAGs' kernels) and the DAG
+# stages, beside the three pipelines
+DAG_SPECS = ["cholesky", "trisolve", "qr", "svd", "fir", "fft", "pusch_fft",
+             "pusch_chanest", "pusch_chain", "svd_factor", "svd_apply"]
 
 
 def test_registry_holds_the_three_served_pipelines():
-    """The three solver pipelines, and the DAG stages and kernels ported
-    beside them, in the reference's registration order and with its
-    sizes, tolerances, kinds, variants and stream descriptors."""
+    """The three solver pipelines, and the DAG stages, the DAGs' kernels
+    and the primitive kernels ported beside them, in the reference's
+    registration order and with its sizes, tolerances, kinds, variants
+    and stream descriptors."""
     assert TK.names() == [n for n in RK.names() if n in SPECS + DAG_SPECS]
     assert TK.names("pipeline")[:3] == SPECS
     for name in SPECS + DAG_SPECS:
