@@ -37,7 +37,19 @@ Phases, each fatal on failure:
                K19 at 61,440 outputs (one 0.5 ms slot of one antenna at
                122.88 Msps) with 31 and 65 taps; guard cases (NaN in the
                unread triangle of K15 and K16, m = n + 1 and m = 1 for
-               K17, even and odd taps and ragged tiles for K19);
+               K17, even and odd taps and ragged tiles for K19); K17 on a
+               wide 4 x 6 matrix and K1 on bf16 (the reference's case).
+               The LM kernels: K18 (GEMM) at the registry's squares and
+               through ops.gemm at 1000 x 300 @ 300 x 700, 129 x 257 @
+               257 x 65, 1 x 1 and in bf16; K20 (flash attention) at the
+               registry case and at D = 8, 64, 128 by S = 96, 128, 512,
+               causal and not, float32 and bf16 (GQA 24/8 at D = 128, 4/2
+               otherwise) and at phi4-mini's prefill shape (4, 24, 512,
+               128), on peaked scores with a large one planted in the
+               last kv tile (``attn_case``), element by element against
+               the plain version and the float32 oracle within what p's
+               rounding allows (``ATTN_RTOLS``); guards: S = 200
+               and a mismatched K must raise;
   4. serve   — the main paths, each with every kernel's launch count
                reset before and read after: the TTI slot mix
                (``repro_torch.launch.serve_solvers.main`` on two mixes and
@@ -57,7 +69,20 @@ Phases, each fatal on failure:
                (``cholesky_solve_unfused``, ``qr_solve_unfused``,
                ``mmse_equalize_composed`` at B = 3276, n = 8, 16, 32:
                their primitive launches only, each equal to its fused
-               kernel within the reference's tolerance);
+               kernel within the reference's tolerance); the primitive
+               API of the LM kernels (``ops.gemm``, ``ops.flash_attention``:
+               exactly K18 4, K20 1); the committed decode trace through
+               the port's mux replayed to ``decode_golden.json`` and
+               ``serve_solvers --decode`` (K2 serves the solver jobs);
+               the LM serving path at phi4-mini-3.8b's full width
+               (``lm_path``, run at the start of phase 5 so that it is
+               timed there): prefill with ``attn_impl="flash"`` on 4
+               prompts of 512 and of 128 tokens (K20 exactly 32 times
+               each, finite logits equal to ``attn_impl="xla"``'s), the
+               128 tokens decoded one by one against the flash prefill,
+               and ``repro_torch.launch.serve --full`` (8 requests
+               through a mux, each greedy output the same when served
+               again alone on the same weights);
   5. times   — each kernel at B = 3276 timed with CUDA events (cold L2)
                beside its bound, its plain version and, where one PyTorch
                call computes the same function, that call; the blocked
@@ -69,13 +94,21 @@ Phases, each fatal on failure:
                (``reps`` on the row).  The fusion block: at B = 3276 and
                n = 8, 16, 32 the wall of each unfused chain (events
                around the whole chain, its copies and library products
-               included) beside its fused kernel (K1, K4, K2).
+               included) beside its fused kernel (K1, K4, K2).  K18 at
+               64^2, 128^2, 1000 x 300 x 700 and 4096^3 (bf16 and float32,
+               beside torch.matmul with TF32 off); K20 at the registry
+               case and phi4-mini's prefill shapes (beside
+               scaled_dot_product_attention with the KV heads repeated);
+               the full-width prefill and decode step as wall time over a
+               window of calls (the path is host-bound), and the kernels
+               the card runs for each and its busy time by torch.profiler.
 
-The lines before the last are the ``{"fusion": [...]}`` and
-``{"kernels": [...]}`` JSON lines and the card's name and power limit;
+The lines before the last are the ``{"fusion": [...]}``, ``{"lm": {...}}``
+and ``{"kernels": [...]}`` JSON lines and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import importlib
 import json
 import math
 import statistics
@@ -118,7 +151,8 @@ SVD_RTOL = 4.0 * (2.0 ** -23) ** 0.5   # 4 sqrt(eps_f32), the SVD specs'
 RTOLS = {"fft": 1e-3, "pusch_fft": 1e-3, "svd": SVD_RTOL,
          "svd_factor": SVD_RTOL, "qr_solve_blocked": 1e-3,
          "qr_solve_tiled": 2e-3, "mmse_equalize_tiled": 2e-3,
-         "trisolve": 1e-3, "trisolve_upper": 1e-3}
+         "trisolve": 1e-3, "trisolve_upper": 1e-3,
+         "flash_attention": 1e-3, "flash_attention_full": 1e-3}
 # At n >= 128 the reference holds blocked Cholesky to 1e-3 against the
 # oracle and blocked QR to 1e-3 (tests/test_variants.py).  The MMSE Gram
 # H^T H + 0.1 I at m = n + 4 has condition ~9.4e3 at n = 256, and fp32
@@ -136,13 +170,15 @@ ORACLE_RTOLS = {"cholesky_solve_blocked": MID_RTOL,
                 "mmse_equalize_tiled": TILED_RTOL}
 # check key -> the kernel it runs (stage adapters run a kernel of their own)
 KERNEL_OF = {"pusch_fft": "fft", "svd_factor": "svd",
-             "trisolve_upper": "trisolve"}
+             "trisolve_upper": "trisolve", "ops_gemm": "gemm",
+             "flash_attention_full": "flash_attention"}
 # (check key, registry spec, variant): the registry cases each kernel is
 # held to
 REGISTRY_CHECKS = (
     ("cholesky", "cholesky", "base"), ("trisolve", "trisolve", "base"),
     ("qr", "qr", "base"), ("fir", "fir", "base"),
     ("svd", "svd", "base"), ("fft", "fft", "base"),
+    ("gemm", "gemm", "base"), ("flash_attention", "flash_attention", "base"),
     ("cholesky_solve", "cholesky_solve", "base"),
     ("cholesky_solve_blocked", "cholesky_solve", "blocked"),
     ("qr_solve", "qr_solve", "base"),
@@ -190,6 +226,41 @@ MID_TIMES = {"cholesky_solve": ((250, None, "global"),),
              "qr_solve_blocked": ((128, None, None), (256, None, None))}
 TILED_TIMES = ("cholesky_solve_tiled", "qr_solve_tiled",
                "mmse_equalize_tiled")
+# the LM slice: phi4-mini-3.8b at its full published width (32 layers,
+# d_model 3072, 24 query and 8 KV heads of 128, d_ff 8192, vocabulary
+# 200,064; float32 weights, bfloat16 compute), prompts of B = 4 at S = 512
+# and 128 (the prefill <-> decode check feeds the 128 one by one)
+LM_ARCH = "phi4-mini-3.8b"
+LM_BATCH = 4
+LM_SEQS = (512, 128)
+LM_PREFILL_REPS = 5          # prefill calls in each timed window
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, bfloat16 tensor cores, dense
+# A bfloat16 answer rounds once to 2^-8 of its size: 2e-2 holds K18 in
+# bf16 to its plain version and to the float32 oracle on the same (bf16)
+# inputs.  5e-2 and the argmax rule
+# are the reference's for bf16 prefill against token-by-token decode
+# (tests/test_models.py::test_prefill_decode_consistency).
+BF16_RTOL = 2e-2
+LM_RTOL = 5e-2
+# K20 element by element, |got - want| <= rtol (softmax(q k^T) |v| +
+# |want|): rounding p to bf16 moves each term of P V by at most 2^-8 of
+# itself (so the sum by 2^-8 of softmax |v|) and the answer rounds to
+# 2^-8 of itself; 5e-3 covers both with room for float32 sums.  Float32
+# differs by summation order and exp's last bits only.
+ATTN_RTOLS = {"float32": 1e-4, "bfloat16": 5e-3}
+# K20 checks: head widths D (phi4-mini's 128 with its GQA 24/8, the
+# registry's 64 and the smoke configs' 8 with GQA 4/2) by S
+FLASH_DIMS = (8, 64, 128)
+FLASH_SEQS = (96, 128, 512)
+# timing rows, the head row last: K18 at the registry's squares, a shape
+# that is not a multiple of its tile and 4096^3 (bf16, then float32); K20
+# at the registry case and at phi4-mini's prefill shapes
+GEMM_TIMES = ((64, 64, 64, "float32"), (128, 128, 128, "float32"),
+              (1000, 300, 700, "float32"), (4096, 4096, 4096, "bfloat16"),
+              (4096, 4096, 4096, "float32"))
+FLASH_TIMES = ((1, 2, 2, 128, 64, "float32"),
+               (LM_BATCH, 24, 8, 128, 128, "bfloat16"),
+               (LM_BATCH, 24, 8, 512, 128, "bfloat16"))
 
 
 @contextlib.contextmanager
@@ -232,10 +303,12 @@ def clocks_line() -> str:
             or "no output").splitlines()[0]
 
 
-def close(got, want, rtol=RTOL):
+def close(got, want, rtol=RTOL, scale=None):
     """assert_close semantics of the test suite: |got - want| <=
     rtol * max|want| + rtol * |want| elementwise, over each tensor of a
-    tuple.  Returns (ok, max |diff|)."""
+    tuple; with ``scale`` (a tensor of want's shape) the floor is
+    rtol * |scale| element by element instead of the global max.
+    Returns (ok, max |diff|)."""
     import torch
     if isinstance(got, tuple):
         res = [close(g, w, rtol) for g, w in zip(got, want)]
@@ -243,9 +316,217 @@ def close(got, want, rtol=RTOL):
     got = got.double()
     want = want.double()
     err = (got - want).abs()
-    tol = rtol * want.abs().max() + 1e-12 + rtol * want.abs()
+    floor = (rtol * want.abs().max() if scale is None
+             else rtol * scale.double().abs())
+    tol = floor + 1e-12 + rtol * want.abs()
     ok = bool(torch.all(err <= tol)) and bool(torch.isfinite(got).all())
     return ok, float(err.max()) if err.numel() else 0.0
+
+
+def device_ops(fn):
+    """What the card runs for one ``fn()`` (after one warm call), from
+    torch.profiler's CUDA activity: (kernels, copies and sets, busy ms),
+    the busy time the sum of their durations (one stream, so they do not
+    overlap).  None where the profiler saw no device activity or
+    failed: a measurement, not a check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    except Exception as e:           # noqa: BLE001 -- reported, not fatal
+        print(f"  torch.profiler failed: {e!r}", flush=True)
+        return None
+    if not ops:
+        return None
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in ops)
+    return (len(ops) - copies, copies,
+            sum(e.time_range.elapsed_us() for e in ops) / 1e3)
+
+
+def wall_ms(fn, reps):
+    """Wall ms a call over a window of ``reps`` back-to-back calls, the
+    card synchronized at each end only."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def lm_path(dev, read_launches, reset_launches, kern) -> dict:
+    """The LM serving path at phi4-mini-3.8b's full width, on the card.
+
+    Prefill (``attn_impl="flash"``) on B = 4 prompts of S = 512, then 128:
+    K20 launches exactly once a layer, the logits are finite and match
+    ``attn_impl="xla"`` on the same weights (bf16 tolerance, argmax on >=
+    3 of 4 rows).  Then the 128 tokens fed one by one through
+    ``decode_step``: the last logits match the flash prefill's (the
+    reference's prefill <-> decode check).  Then the serving entry point
+    (``repro_torch.launch.serve``): a DecodeEngine of 4 slots, 256 tokens
+    of cache, behind a mux serving 8 greedy requests of 3-40 prompt
+    tokens and 16 new ones, each output the same when served again
+    alone.  Returns the path's numbers: wall times over whole windows
+    (the path is host-bound, so CUDA events around a call would time the
+    host's enqueue), and what the card ran for one decode step and one
+    prefill by torch.profiler."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import decode as MD
+    from repro_torch.models import transformer as MT
+    from repro_torch.serve.decode import DecodeEngine
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    # float32 weights from the generator, then the one bf16 copy the
+    # path runs on (the values each use would cast to)
+    params = MT.cast_params(MT.init_params(gen, cfg), cfg)
+    torch.cuda.synchronize()
+    leaves = [t for lp in params["layers"] for part in lp.values()
+              for t in (part.values() if isinstance(part, dict)
+                        else (part,))] \
+        + [params[k] for k in ("embed", "ln_f", "lm_head")]
+    n_params = sum(t.numel() for t in leaves)
+    # the config's analytical count leaves out the norm scales
+    n_matrix = sum(t.numel() for t in leaves if t.dim() >= 2)
+    print(f"LM: {cfg.name} at full width, {n_params} parameters, "
+          f"{n_matrix} of them in matrices (float32 made, bf16 kept), built "
+          f"in {time.perf_counter() - t0:.3f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated",
+          flush=True)
+    if n_matrix != cfg.param_count():
+        fail(f"{n_matrix} matrix parameters, the config counts "
+             f"{cfg.param_count()}")
+    tokens = {s: torch.randint(0, cfg.vocab, (LM_BATCH, s), generator=gen,
+                               device=dev) for s in LM_SEQS}
+    out = {"arch": cfg.name, "params": n_params, "batch": LM_BATCH}
+
+    reset_launches()
+    logits = {}
+    flash = kern["flash_attention"]
+    for s in LM_SEQS:
+        before = flash.launches
+        logits[s] = MT.prefill(params, cfg, {"tokens": tokens[s]})
+        torch.cuda.synchronize()
+        if flash.launches - before != cfg.n_layers:
+            fail(f"prefill S={s} launched K20 {flash.launches - before} "
+                 f"times, not once for each of {cfg.n_layers} layers")
+        if not bool(torch.isfinite(logits[s]).all()):
+            fail(f"prefill S={s}: non-finite logits")
+    read_launches(f"LM prefill (flash) B={LM_BATCH} S={LM_SEQS}",
+                  ("flash_attention",),
+                  exact={"flash_attention": cfg.n_layers * len(LM_SEQS)})
+    xcfg = dataclasses.replace(cfg, attn_impl="xla")
+    for s in LM_SEQS:
+        want = MT.prefill(params, xcfg, {"tokens": tokens[s]})
+        rel = float((logits[s] - want).abs().max() / want.abs().max())
+        agree = int((logits[s].argmax(-1) == want.argmax(-1)).sum())
+        print(f"  prefill S={s}: flash vs xla logits rel err {rel:.3e} "
+              f"(< {LM_RTOL}), argmax on {agree}/{LM_BATCH} rows",
+              flush=True)
+        out[f"flash_vs_xla_rel_err_s{s}"] = rel
+        out[f"flash_vs_xla_argmax_s{s}"] = agree
+        if not (rel < LM_RTOL and agree >= LM_BATCH - 1):
+            fail(f"prefill S={s}: flash differs from xla")
+
+    # the 128 tokens fed one by one, timed as one window: wall over the
+    # steps, the card synchronized at each end only
+    s = LM_SEQS[-1]
+    cache = MD.init_cache(cfg, LM_BATCH, s, device=dev)
+    pos = [torch.full((LM_BATCH,), j, device=dev) for j in range(s)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(s):
+        last, cache = MD.decode_step(params, cfg, cache,
+                                     tokens[s][:, j:j + 1], pos[j])
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    rel = float((last - logits[s]).abs().max() / logits[s].abs().max())
+    agree = float((last.argmax(-1) == logits[s].argmax(-1)).float().mean())
+    step_ms = 1e3 * window / s
+    print(f"  decode x{s} vs flash prefill S={s}: last logits rel err "
+          f"{rel:.3e} (< {LM_RTOL}), argmax agreement {agree:.2f} (>= "
+          f"0.5); {s} steps in {window:.3f}s wall: {step_ms:.3f} ms a "
+          f"step, {LM_BATCH * s / window:.1f} tokens/s", flush=True)
+    out.update(decode_vs_prefill_rel_err=rel, decode_vs_prefill_argmax=agree,
+               decode_step_ms=step_ms,
+               decode_tokens_per_s=LM_BATCH * s / window)
+    if not (rel < LM_RTOL and agree >= 0.5):
+        fail("token-by-token decode diverges from the flash prefill")
+
+    for s in LM_SEQS:
+        ms = wall_ms(lambda s=s: MT.prefill(params, cfg,
+                                            {"tokens": tokens[s]}),
+                     LM_PREFILL_REPS)
+        out[f"prefill_ms_s{s}"] = ms
+        print(f"  prefill B={LM_BATCH} S={s}: {ms:.3f} ms wall a call "
+              f"(window of {LM_PREFILL_REPS}), "
+              f"{1e3 * LM_BATCH * s / ms:.0f} tokens/s", flush=True)
+    tok = tokens[s][:, -1:]
+    for label, fn in (
+            ("decode_step", lambda: MD.decode_step(params, cfg, cache, tok,
+                                                   pos[-1])),
+            (f"prefill_s{s}", lambda: MT.prefill(params, cfg,
+                                                 {"tokens": tokens[s]}))):
+        ops = device_ops(fn)
+        if ops is None:
+            print(f"  {label}: device operations not measured "
+                  f"(torch.profiler saw none)", flush=True)
+            out[f"{label}_kernels"] = None
+            continue
+        kernels, copies, busy = ops
+        wall = step_ms if label == "decode_step" else out[f"prefill_ms_s{s}"]
+        out.update({f"{label}_kernels": kernels, f"{label}_copies": copies,
+                    f"{label}_device_busy_ms": busy,
+                    f"{label}_device_idle_share": 1.0 - busy / wall})
+        print(f"  {label}: the card runs {kernels} kernels and {copies} "
+              f"copies/sets, busy {busy:.3f} ms of {wall:.3f} ms wall "
+              f"(idle {1.0 - busy / wall:.1%}; torch.profiler)", flush=True)
+    del cache, logits, tokens
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    argv = ["--full", "--arch", LM_ARCH, "--pool", "4", "--max-len", "256",
+            "--requests", "8", "--max-new", "16"]
+    print(f"serve {' '.join(argv)}", flush=True)
+    summary = LS.main(argv)
+    if summary["done"] != 8 or summary["tokens"] != 8 * 16:
+        fail(f"LM serving: {summary}")
+    read_launches("LM serving (decode through the mux)", (), exact={})
+    # greedy decoding depends on the prompt only: each request served
+    # again alone, by an engine over the weights this path holds (the
+    # launcher's: the same generator and seed), gives the same output
+    engine = DecodeEngine(get_config(LM_ARCH), params, batch=4, max_len=256,
+                          eos_id=-1)
+    solo = [LS.serve(engine, [p], 16)[0].out for p in summary["prompts"]]
+    print(f"  greedy outputs solo == co-batched: "
+          f"{solo == summary['outputs']}", flush=True)
+    if solo != summary["outputs"]:
+        fail("LM serving: a greedy output changed with its pool-mates")
+    out.update(serve_tokens_per_s=summary["tokens_per_s"],
+               serve_step_ms=summary["step_ms"],
+               serve_step_ms_p50=summary["step_ms_p50"],
+               serve_steps=summary["steps"], serve_tokens=summary["tokens"],
+               serve_seconds=summary["seconds"])
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -272,13 +553,15 @@ def main():
 
     from repro_torch import kernels as K
     from repro_torch import pipelines as pp
-    from repro_torch.kernels import cholesky as KC
+    KC = importlib.import_module("repro_torch.kernels.cholesky")
     from repro_torch.kernels import common, ref
-    from repro_torch.kernels import fft as F
-    from repro_torch.kernels import fir as KF
-    from repro_torch.kernels import qr as KQ
-    from repro_torch.kernels import svd as S
-    from repro_torch.kernels import trisolve as KT
+    F = importlib.import_module("repro_torch.kernels.fft")
+    KF = importlib.import_module("repro_torch.kernels.fir")
+    KQ = importlib.import_module("repro_torch.kernels.qr")
+    S = importlib.import_module("repro_torch.kernels.svd")
+    KT = importlib.import_module("repro_torch.kernels.trisolve")
+    KG = importlib.import_module("repro_torch.kernels.gemm")
+    KA = importlib.import_module("repro_torch.kernels.attention")
     from repro_torch.kernels.common import sample_spd
     from repro_torch.kernels.svd import spectrum_recon
 
@@ -313,7 +596,12 @@ def main():
              "cholesky": KC.cholesky_fused, "trisolve": KT.trisolve_fused,
              "trisolve_upper": lambda l, b: KT.trisolve_fused(l, b,
                                                               lower=False),
-             "qr": KQ.qr_fused, "fir": KF.fir_fused}
+             "qr": KQ.qr_fused, "fir": KF.fir_fused,
+             "gemm": KG.gemm_fused,
+             "ops_gemm": lambda x, y: K.gemm(x, y, device=x.device),
+             "flash_attention": KA.flash_attention_fused,
+             "flash_attention_full": lambda q, k, v:
+                 KA.flash_attention_fused(q, k, v, causal=False)}
     plain = {"cholesky_solve": pp.cholesky_solve_plain,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_plain,
              "qr_solve_blocked": pp.qr_solve_blocked_plain,
@@ -334,7 +622,11 @@ def main():
              "cholesky": KC.cholesky_plain, "trisolve": KT.trisolve_plain,
              "trisolve_upper": lambda l, b: KT.trisolve_plain(l, b,
                                                               lower=False),
-             "qr": KQ.qr_plain, "fir": KF.fir_plain}
+             "qr": KQ.qr_plain, "fir": KF.fir_plain,
+             "gemm": KG.gemm_plain, "ops_gemm": KG.gemm_plain,
+             "flash_attention": KA.flash_attention_plain,
+             "flash_attention_full": lambda q, k, v:
+                 KA.flash_attention_plain(q, k, v, causal=False)}
     oracle = {"cholesky_solve": ref.cholesky_solve,
               "cholesky_solve_blocked": ref.cholesky_solve,
               "qr_solve_blocked": ref.qr_solve,
@@ -353,26 +645,32 @@ def main():
               "svd_apply": ref.svd_apply,
               "cholesky": ref.cholesky, "trisolve": ref.trisolve,
               "trisolve_upper": lambda l, b: ref.trisolve(l, b, lower=False),
-              "qr": ref.qr, "fir": ref.fir}
+              "qr": ref.qr, "fir": ref.fir,
+              "gemm": ref.gemm, "ops_gemm": ref.gemm,
+              "flash_attention": ref.mha,
+              "flash_attention_full": lambda q, k, v:
+                  ref.mha(q, k, v, causal=False)}
     if set(kern) != {KERNEL_OF.get(key, key) for key in fused}:
         fail(f"kernel set {sorted(kern)} != {sorted(fused)}")
     max_err = {name: 0.0 for name in kern}
     failures = []
 
-    def check(key, args, label, oracle_args=None, rtol=None, **kw):
+    def check(key, args, label, oracle_args=None, rtol=None, scale=None,
+              **kw):
         """Kernel vs plain version (same card inputs, both given ``kw``)
-        vs oracle (on ``oracle_args``, default the same inputs).  Returns
-        the kernel's and the plain version's answers."""
+        vs oracle (on ``oracle_args``, default the same inputs), each
+        within ``close``'s limit (``scale`` its elementwise floor).
+        Returns the kernel's and the plain version's answers."""
         rtol = rtol or RTOLS.get(key, RTOL)
         rtol_o = max(rtol, ORACLE_RTOLS.get(key, rtol))
         got = fused[key](*args, **kw)
         torch.cuda.synchronize()
         want = plain[key](*args, **kw)
-        ok, err = close(got, want, rtol)
+        ok, err = close(got, want, rtol, scale)
         name = KERNEL_OF.get(key, key)
         max_err[name] = max(max_err[name], err)
         ok_o, err_o = close(got, oracle[key](*(oracle_args or args)),
-                            rtol_o)
+                            rtol_o, scale)
         status = "ok" if ok and ok_o else "MISMATCH"
         print(f"  {key:<22} {label:<28} |kernel-plain| {err:.3e}  "
               f"|kernel-oracle| {err_o:.3e}  (rtol {rtol:.3g}/"
@@ -768,6 +1066,85 @@ def main():
     q1, r1 = KQ.qr_fused(a1)
     if not (torch.equal(q1, torch.ones_like(q1)) and torch.equal(r1, a1)):
         failures.append("qr: m = 1 is not Q = I, R = A")
+    # a wide matrix (M < N): min(N, M - 1) reflectors, R an upper trapezoid
+    got, _ = check("qr", (rand(rng, 2, 4, 6),), "wide 4x6")
+    if not torch.all(torch.tril(got[1], -1) == 0):
+        failures.append("qr: wide R not zero below its diagonal")
+    # K1 takes bfloat16: float32 inside, bf16 out (the reference's case)
+    a16 = torch.from_numpy(sample_spd(rng, 2, 16)).to(dev)
+    b16 = rand(rng, 2, 16, 2)
+    x16 = pp.cholesky_solve_fused(a16.bfloat16(), b16.bfloat16())
+    ok, err = close(x16, ref.cholesky_solve(a16, b16), 8e-2)
+    print(f"  cholesky_solve         bf16 registry n=16          "
+          f"|kernel-oracle| {err:.3e}  (rtol 0.08) "
+          f"{'ok' if ok and x16.dtype == torch.bfloat16 else 'MISMATCH'}")
+    if not (ok and x16.dtype == torch.bfloat16):
+        failures.append("cholesky_solve: bf16")
+
+    # ---- the LM kernels: K18 and K20 ----
+    print("LM kernels (K18 GEMM, K20 flash attention):", flush=True)
+    for m, kk, n in ((1000, 300, 700), (129, 257, 65), (1, 1, 1)):
+        check("ops_gemm", (rand(rng, m, kk), rand(rng, kk, n)),
+              f"ops.gemm {m}x{kk}x{n}")
+    check("ops_gemm", (rand(rng, 1000, 300).bfloat16(),
+                       rand(rng, 300, 700).bfloat16()),
+          "ops.gemm 1000x300x700 bf16", rtol=BF16_RTOL)
+
+    def attn_case(b, h, hkv, s, d, dtype):
+        """Peaked scores: q and k at sigma 1.5 (scaled scores of sigma
+        ~2.25, so each row's max moves from kv tile to kv tile), q with
+        a common component 3 / sqrt(D) per element and the key at
+        s - 1 - s // 16, in the last kv tile, set to 6 per element: a
+        score of ~18 planted late, where the running max jumps and all
+        that came before must be rescaled.  v standard normal."""
+        q = rand(rng, b, h, s, d) * 1.5 + 3.0 / math.sqrt(d)
+        k = rand(rng, b, hkv, s, d) * 1.5
+        k[:, :, s - 1 - s // 16] = 6.0
+        return q.to(dtype), k.to(dtype), rand(rng, b, hkv, s, d).to(dtype)
+
+    def attn_check(args, label, keys=("flash_attention",
+                                      "flash_attention_full")):
+        """K20 against its plain version and the float32 oracle on the
+        same inputs, element by element: the limit is ATTN_RTOLS[dtype]
+        of softmax(q k^T) |v| + |out| (the error p's rounding can make)."""
+        dtype = str(args[0].dtype)[6:]
+        rtol = ATTN_RTOLS[dtype]
+        wide = tuple(t.float() for t in args)
+        for key in keys:
+            scale = oracle[key](wide[0], wide[1], wide[2].abs())
+            got, want = check(key, args, f"{label} {dtype}",
+                              oracle_args=wide, rtol=rtol, scale=scale)
+            worst = [float(((got.double() - w.double()).abs()
+                            / (rtol * (scale.double() + w.double().abs())))
+                           .max()) for w in (want, oracle[key](*wide))]
+            print(f"    worst |diff| / limit: {worst[0]:.3f} against the "
+                  f"plain version, {worst[1]:.3f} against the oracle",
+                  flush=True)
+
+    for d in FLASH_DIMS:
+        h, hkv = (24, 8) if d == 128 else (4, 2)
+        for s in FLASH_SEQS:
+            for dtype in (torch.float32, torch.bfloat16):
+                attn_check(attn_case(1, h, hkv, s, d, dtype),
+                           f"D={d} S={s}")
+    attn_check(attn_case(LM_BATCH, 24, 8, LM_SEQS[0], 128, torch.bfloat16),
+               f"B={LM_BATCH} 24/8 S=512", keys=("flash_attention",))
+    for label, call in (
+            ("flash_attention S=200 (not a multiple of 128)",
+             lambda: KA.flash_attention_fused(
+                 *(torch.ones((1, 2, 200, 64), device=dev),) * 3)),
+            ("gemm K mismatch (4x5 @ 6x3)",
+             lambda: KG.gemm_fused(torch.ones((4, 5), device=dev),
+                                   torch.ones((6, 3), device=dev))),
+            ("ops.gemm K mismatch (4x5 @ 6x3)",
+             lambda: K.gemm(torch.ones((4, 5), device=dev),
+                            torch.ones((6, 3), device=dev), device=dev))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"  guard {label}: raises ({e})")
+        else:
+            failures.append(f"guard {label}: did not raise")
 
     for label, out in guards:
         finite = bool(torch.isfinite(out).all())
@@ -939,6 +1316,42 @@ def main():
             if not ok:
                 fail(f"{base} n={n} differs from {name}: {err:.3e}")
 
+    # the primitive API of the LM kernels: ops.gemm (K18) at the
+    # registry's squares, at shapes that are not multiples of its tile and
+    # in bf16, and ops.flash_attention (K20) at the registry case
+    reset_launches()
+    for n in K.get("gemm").sizes:
+        K.gemm(*(a.to(dev) for a in K.get("gemm").make_case(rng, n)),
+               device=dev)
+    K.gemm(rand(rng, 1000, 300), rand(rng, 300, 700), device=dev)
+    K.gemm(rand(rng, 1000, 300).bfloat16(), rand(rng, 300, 700).bfloat16(),
+           device=dev)
+    K.flash_attention(*(a.to(dev) for a in K.get("flash_attention")
+                        .make_case(rng, 128)), device=dev)
+    torch.cuda.synchronize()
+    read_launches("primitive API ops.gemm / ops.flash_attention",
+                  ("gemm", "flash_attention"),
+                  exact={"gemm": 4, "flash_attention": 1})
+
+    # the decode golden: the committed mixed solver + decode trace through
+    # the port's mux on the card (K2 serves its solver jobs), event for
+    # event equal to the golden file; then the --decode entry point
+    reset_launches()
+    trace = json.loads((ROOT / "tests" / "data"
+                        / "decode_trace.json").read_text())
+    mux, _, reqs, jobs = S_.replay_decode(trace)
+    got = json.dumps(mux.drain_events(), indent=1) + "\n"
+    want = (ROOT / "tests" / "data" / "decode_golden.json").read_text()
+    print(f"decode golden replay: {len(reqs)} requests, {len(jobs)} solver "
+          f"jobs, equal={got == want}", flush=True)
+    if got != want or not all(r.done for r in reqs) \
+            or not all(j.state == "done" for j in jobs):
+        fail("decode trace replay differs from decode_golden.json")
+    print("serve_solvers --decode", flush=True)
+    out = S_.main(["--decode"])
+    print(f"  summary {json.dumps(out)}", flush=True)
+    read_launches("decode golden + --decode", ("mmse_equalize",))
+
     # ---------------- 5. times ----------------
     flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
 
@@ -976,6 +1389,14 @@ def main():
         cost model, not bound it).  A blocked kernel computes its base
         kernel's function, so it has the same least work."""
         key = key.removesuffix("_blocked").removesuffix("_tiled")
+        if key == "gemm":                      # whole shapes, float32
+            (m, kk), (_, n) = shapes
+            return 4 * (m * kk + kk * n + m * n), 2 * m * n * kk
+        if key == "flash_attention":           # causal: the lower
+            b, h, s, d = shapes[0]             # triangle with its diagonal
+            hkv = shapes[1][1]                 # (QK^T and PV, 2 FLOPs a
+            return (4 * (2 * b * h * s * d + 2 * b * hkv * s * d),  # MAC)
+                    2 * b * h * s * (s + 1) * d)
         if key == "fir":                       # whole shapes, one signal
             (nx,), (taps,) = shapes
             out = nx - taps + 1
@@ -1067,10 +1488,22 @@ def main():
                 *args, upper=key == "trisolve_upper")
         if key == "qr":
             return lambda: torch.linalg.qr(args[0], mode="complete")
+        if key == "gemm":                      # cuBLAS with TF32 off (above)
+            return lambda: torch.matmul(*args)
+        if key == "flash_attention":           # KV heads repeated outside
+            q, k, v = args
+            g = q.shape[1] // k.shape[1]
+            kr = k.repeat_interleave(g, dim=1)
+            vr = v.repeat_interleave(g, dim=1)
+            return lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True)
         if key == "fir":                       # cuDNN with TF32 off (above)
             return lambda: torch.nn.functional.conv1d(args[0][None, None],
                                                       args[1][None, None])
         return None
+
+    # ---- 4b. the LM serving path at full width (timed here) ----
+    lm = lm_path(dev, read_launches, reset_launches, kern)
 
     # the timed call of each kernel: its main-path entry point, returning
     # what the main path gets (not the spectrum/reconstruction view)
@@ -1108,6 +1541,21 @@ def main():
             cases += [(f"n={n} B={b}", n, None, b,
                        lambda n=n, b=b: mid_case(key, b, n), key)
                       for n, b in TILED_CASES]
+        if name == "gemm":                 # whole shapes: lanes = 1
+            cases += [(f"{m}x{kk}x{n} {dt}", None, None, 1,
+                       lambda m=m, kk=kk, n=n, dt=getattr(torch, dt): (
+                           grand(m, kk).to(dt), grand(kk, n).to(dt)),
+                       "gemm")
+                      for m, kk, n, dt in GEMM_TIMES]
+        if name == "flash_attention":
+            cases += [(f"B={b} {h}/{hkv} S={s} D={d} {dt}", None, None,
+                       1,
+                       lambda b=b, h=h, hkv=hkv, s=s, d=d,
+                       dt=getattr(torch, dt): tuple(
+                           (grand(b, hh, s, d) * sc).to(dt)
+                           for hh, sc in ((h, 0.3), (hkv, 0.3), (hkv, 1.0))),
+                       "flash_attention")
+                      for b, h, hkv, s, d, dt in FLASH_TIMES]
         sweep = []
         for label, n, form, lanes, make, tkey in cases:
             args = make()
@@ -1116,8 +1564,11 @@ def main():
                            for a in args)
             lane_bytes, lane_flops = work(tkey, shapes)
             nbytes, flops = lanes * lane_bytes, lanes * lane_flops
+            peak = PEAK_F32_FLOPS
+            if args[0].dtype == torch.bfloat16:   # 2 bytes, tensor cores
+                nbytes, peak = nbytes // 2, PEAK_BF16_FLOPS
             t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-            t_ops = flops / PEAK_F32_FLOPS * 1e3
+            t_ops = flops / peak * 1e3
             before = k.launches_global
             ms, ms_max, reps = time_ms(lambda: tk(*args), 30)
             if (form == "global") != (k.launches_global > before):
@@ -1189,6 +1640,7 @@ def main():
     print(f"clocks after timing (sm, max sm, temperature, power draw): "
           f"{clocks_line()}", flush=True)
     print(json.dumps({"fusion": fusion}))
+    print(json.dumps({"lm": lm}))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

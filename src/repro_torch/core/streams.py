@@ -2,10 +2,9 @@
 
 A *stream* describes an affine-plus-stretch iteration domain and address
 function.  REVEL encodes these in hardware state machines; here they are a
-small IR, executable in pure Python / numpy so properties can be tested.
-This is the subset the served solver pipelines' registry specs use (their
-``stream`` descriptors); the paper's control-overhead model lives with
-the reference package until a later slice needs it.
+small IR, executable in pure Python / numpy so properties can be tested:
+the registry specs' ``stream`` descriptors, and the paper's analytical
+control-overhead model over them (:func:`command_count`).
 
 Capability letters follow the paper: each dimension is either
   'R' — rectangular: trip count is a constant
@@ -25,7 +24,9 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["StreamDim", "StreamDescriptor", "rect", "inductive"]
+__all__ = ["StreamDim", "StreamDescriptor", "rect", "inductive",
+           "command_count", "commands_per_iteration",
+           "average_stream_length"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +154,106 @@ def inductive(outer_trip: int, inner_base: int, inner_stretch,
                   (Fraction(inner_stretch),)),
     )
     return StreamDescriptor(dims=dims, base=base, name=name)
+
+
+# ---------------- analytical control-overhead model ----------------
+# Reproduces the paper's Fig. 11 / Fig. 21 / Fig. 22 methodology: how many
+# control commands must a Von-Neumann core issue to express a given
+# iteration pattern, under a hardware capability?
+
+_CAPABILITY_ORDER = ["V", "R", "RR", "RI", "RRR", "RII"]
+
+
+def _supports(capability: str, pattern: StreamDescriptor) -> bool:
+    """Can one command of class `capability` express `pattern` directly?"""
+    if capability == "V":
+        return False  # vectors always decompose (handled in command_count)
+    if len(capability) < pattern.ndim:
+        return False
+    # align capability letters to the innermost dims of the pattern
+    cap = capability[-pattern.ndim:] if len(capability) >= pattern.ndim else capability
+    for letter, dim in zip(cap, pattern.dims):
+        if dim.is_inductive and letter != "I":
+            return False
+    return True
+
+
+def command_count(pattern: StreamDescriptor, capability: str,
+                  vector_width: int = 8) -> int:
+    """Number of control commands to express `pattern` at `capability`.
+
+    'V'  — classic vector ISA: one instruction per vector_width elements
+           of the innermost dimension (ceil), issued per inner loop, per
+           outer iteration (this is the paper's "V" baseline).
+    'R'  — 1D streams: one command per innermost loop instance.
+    'RR' — 2D rectangular: one command expresses a rectangle; inductive
+           patterns decompose into per-outer-iteration 1D commands.
+    'RI' — 2D inductive: one command for any 2D (possibly inductive)
+           pattern (paper: solver 3+5n -> 8 total commands).
+    """
+    if capability not in _CAPABILITY_ORDER:
+        raise ValueError(f"unknown capability {capability!r}")
+
+    # degenerate stream: a pattern with no iterations at all (e.g. an
+    # inductive inner dim with inner_base=0 and non-positive stretch, or
+    # a zero outer trip) needs no commands — without this guard the V
+    # path's max(1, ...) and the _supports fast path both claim 1.
+    # Individual empty rows inside a non-empty decomposed pattern still
+    # charge one command each (the core issues the per-outer-iteration
+    # command before the zero trip count is known — the paper's 3+5n
+    # accounting), which the max(1, ...) below preserves.
+    if pattern.length() == 0:
+        return 0
+
+    if capability == "V":
+        total = 0
+        if pattern.ndim == 1:
+            return max(1, math.ceil(pattern.dims[0].trip(()) / vector_width))
+        for t in pattern.trip_counts():
+            total += max(1, math.ceil(t / vector_width))
+        return total
+
+    if _supports(capability, pattern):
+        return 1
+
+    if pattern.ndim == 1:
+        return 1  # any stream capability covers a 1D run
+
+    # decompose: peel the outermost dimension, recurse
+    d0 = pattern.dims[0]
+    total = 0
+    for j in range(d0.trip(())):
+        inner_dims = []
+        for d in pattern.dims[1:]:
+            # fold iterator-0's contribution into the base trip
+            stretch0 = d.stretch[0] if d.stretch else Fraction(0)
+            inner_dims.append(
+                StreamDim(
+                    base_trip=Fraction(d.base_trip) + stretch0 * j,
+                    stride=d.stride,
+                    stretch=d.stretch[1:],
+                )
+            )
+        sub = StreamDescriptor(
+            dims=tuple(inner_dims),
+            base=pattern.base + d0.stride * j,
+            name=pattern.name,
+        )
+        total += max(1, command_count(sub, capability, vector_width))
+    return total
+
+
+def commands_per_iteration(pattern: StreamDescriptor, capability: str,
+                           vector_width: int = 8) -> float:
+    """Paper Fig. 22 metric: control instructions per inner-loop iteration."""
+    n = pattern.length()
+    if n == 0:
+        return 0.0
+    return command_count(pattern, capability, vector_width) / n
+
+
+def average_stream_length(pattern: StreamDescriptor, capability: str,
+                          vector_width: int = 8) -> float:
+    """Paper Fig. 21 metric: mean iterations covered by one command."""
+    c = command_count(pattern, capability, vector_width)
+    return pattern.length() / max(1, c)

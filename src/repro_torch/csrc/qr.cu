@@ -156,7 +156,8 @@ extern "C" {
 
 size_t qr_smem(int m, int n) { return repro_torch::smem_bytes(m, n); }
 
-// a (batch, m, n) with m >= n -> q (batch, m, m), r (batch, m, n), float32.
+// a (batch, m, n), any m and n -> q (batch, m, m), r (batch, m, n), float32
+// (for m < n, min(n, m - 1) reflectors leave r an upper trapezoid).
 // in_global: 0 for the shared form, 1 for the global form (Q and R worked
 // on in place in q and r).
 int qr_f32(const void* a, void* q, void* r, int batch, int m, int n,

@@ -17,7 +17,14 @@ iterate ``specs()`` instead of hand-importing each pipeline:
         assert close(spec.kernel(*args), spec.run_oracle(*args))
 
 Pipeline DAGs (:class:`DagSpec`, :func:`register_dag`) chain registered
-pipelines as named stages; ``SolverMux.submit_dag`` serves them.
+pipelines as named stages; ``SolverMux.submit_dag`` serves them.  Token
+decode (:class:`DecodeSpec`, :func:`register_decode`) describes the LM
+traffic ``SolverMux.attach_decode`` serves.  The package also re-exports
+the primitive API of :mod:`repro_torch.kernels.ops` (``cholesky``,
+``gemm``, ``flash_attention``, ...), as the reference's does, so
+``repro_torch.kernels.cholesky`` is the function; import a kernel's
+module by its full name (``from repro_torch.kernels.cholesky import
+cholesky_fused``).
 
 Names, sizes, tolerances, variant order, ``when`` predicates, flops
 models and DAG declarations are the reference's
@@ -39,9 +46,22 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["KernelSpec", "Variant", "Coalescer", "StageSpec", "DagSpec",
-           "register", "register_dag", "get", "names", "specs", "get_dag",
-           "dag_names", "dag_specs"]
+from repro_torch.kernels.ops import (  # noqa: F401
+    cholesky,
+    trisolve,
+    qr,
+    svd,
+    gemm,
+    fir,
+    fft,
+    flash_attention,
+)
+
+__all__ = ["cholesky", "trisolve", "qr", "svd", "gemm", "fir", "fft",
+           "flash_attention", "KernelSpec", "Variant", "Coalescer",
+           "register", "get", "names", "specs", "StageSpec", "DagSpec",
+           "register_dag", "get_dag", "dag_names", "dag_specs",
+           "DecodeSpec", "register_decode", "get_decode", "decode_names"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,8 +365,47 @@ class DagSpec:
         return RegionGraph(regions=regions, deps=list(deps))
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodeSpec:
+    """A servable token-decode workload: the registry's description of
+    continuous-batching LM decode (:class:`repro_torch.serve.decode.
+    DecodeEngine`), the third traffic class next to solver pipelines
+    (:class:`KernelSpec`) and stage DAGs (:class:`DagSpec`).
+
+    Its unit of dispatch is one decode *step* over the slot pool, not a
+    kernel over a lane group, so it has a registry of its own rather
+    than a ``kind`` on KernelSpec (whose consumers expect ``make_case``
+    and ``kernel``).  What the mux needs to price and admit decode
+    traffic lives here: the phase names (prefill / insert / generate)
+    and a closed-form per-token FLOP model over the serving
+    :class:`~repro_torch.models.config.ArchConfig` — the decode analogue
+    of ``Variant.model_flops``."""
+
+    name: str
+    phases: tuple[str, ...] = ("prefill", "insert", "generate")
+    description: str = ""
+    flops_fn: Callable | None = None
+    """Optional override: ``flops_fn(cfg) -> float`` per-token FLOPs."""
+
+    def token_flops(self, cfg) -> float:
+        """Model FLOPs to decode ONE token on one slot: ~2 FLOPs per
+        weight touched (QKVO projections, the FFN at the config's
+        arity, the LM head); attention over the live cache depends on
+        the position and is left out, as the solver FLOP models count
+        shapes only."""
+        if self.flops_fn is not None:
+            return float(self.flops_fn(cfg))
+        d = cfg.d_model
+        attn = 2 * d * (cfg.n_heads + cfg.n_kv) * cfg.d_head \
+            + 2 * d * cfg.n_heads * cfg.d_head
+        ffn_mats = 3 if cfg.act == "swiglu" else 2
+        ffn = ffn_mats * 2 * d * cfg.d_ff
+        return float(cfg.n_layers * (attn + ffn) + 2 * d * cfg.vocab)
+
+
 _REGISTRY: dict[str, KernelSpec] = {}
 _DAGS: dict[str, DagSpec] = {}
+_DECODES: dict[str, DecodeSpec] = {}
 _BUILT = False
 _LOCK = threading.Lock()
 
@@ -371,6 +430,13 @@ def register_dag(spec: DagSpec) -> DagSpec:
     return spec
 
 
+def register_decode(spec: DecodeSpec) -> DecodeSpec:
+    if spec.name in _DECODES:
+        raise ValueError(f"duplicate decode registration: {spec.name!r}")
+    _DECODES[spec.name] = spec
+    return spec
+
+
 def _build() -> None:
     """Populate the registry (idempotent, thread-safe, atomic: a failed
     build clears the partial state so the root-cause error — not a
@@ -384,6 +450,7 @@ def _build() -> None:
         except BaseException:
             _REGISTRY.clear()
             _DAGS.clear()
+            _DECODES.clear()
             raise
         _BUILT = True
 
@@ -399,7 +466,9 @@ def _register_all() -> None:
     from repro_torch.kernels.cholesky import cholesky_fused
     from repro_torch.kernels.common import sample_spd as _spd
     from repro_torch.kernels.fft import fft_fused
+    from repro_torch.kernels.attention import flash_attention_fused
     from repro_torch.kernels.fir import fir_fused
+    from repro_torch.kernels.gemm import gemm_fused
     from repro_torch.kernels.qr import qr_fused
     from repro_torch.kernels.svd import spectrum_recon, svd_fused
     from repro_torch.kernels.trisolve import trisolve_fused
@@ -453,6 +522,15 @@ def _register_all() -> None:
                                    inner_stretch=-1),
         sizes=(8, 12, 16), rtol=svd_rtol, kind="kernel"))
 
+    # ---------------- dense / DSP ----------------
+    register(KernelSpec(
+        name="gemm", kernel=gemm_fused, run_oracle=ref.gemm,
+        run_kernel=lambda x, y: gemm(x, y, device=x.device),
+        make_case=lambda rng, n: (
+            _tensor(rng.standard_normal((4 * n, 4 * n)).astype(np.float32)),
+            _tensor(rng.standard_normal((4 * n, 4 * n)).astype(np.float32))),
+        stream=lambda n: rect(4 * n, 4 * n), sizes=(16, 32), kind="kernel"))
+
     def _fir_case(rng, n):
         x = rng.standard_normal((16 * n,)).astype(np.float32)
         h = rng.standard_normal((9,)).astype(np.float32)
@@ -472,6 +550,28 @@ def _register_all() -> None:
             _tensor(rng.standard_normal((2, n)).astype(np.float32))),
         stream=lambda n: rect(int(np.log2(n)), n // 2),
         sizes=(64, 128, 256, 1024), rtol=1e-3, kind="kernel"))
+
+    # ---------------- LM-side ----------------
+    def _attn_case(rng, n):
+        s, d = 128, 64
+        mk = lambda sc: _tensor(
+            (rng.standard_normal((1, 2, s, d)) * sc).astype(np.float32))
+        return mk(0.3), mk(0.3), mk(1.0)
+
+    register(KernelSpec(
+        name="flash_attention", kernel=flash_attention_fused,
+        run_oracle=lambda q, k, v: ref.mha(q, k, v, causal=True),
+        make_case=_attn_case,
+        stream=lambda n: inductive(outer_trip=n, inner_base=1,
+                                   inner_stretch=1),
+        sizes=(128,), rtol=1e-3, kind="kernel"))
+
+    # ---------------- token decode (continuous batching) ----------------
+    register_decode(DecodeSpec(
+        name="lm_decode",
+        description="continuous-batching LM token decode: per-slot "
+                    "positions, slot-level paged KV reuse, one step "
+                    "over the slot pool"))
 
     def _identity_system_filler(shapes, dtypes):
         """Benign padding lane for (matrix, rhs) solver pipelines: an
@@ -964,3 +1064,17 @@ def dag_names() -> list[str]:
 def dag_specs() -> list[DagSpec]:
     _build()
     return [_DAGS[n] for n in sorted(_DAGS)]
+
+
+def get_decode(name: str) -> DecodeSpec:
+    _build()
+    try:
+        return _DECODES[name]
+    except KeyError:
+        raise KeyError(f"unknown decode spec {name!r}; registered: "
+                       f"{sorted(_DECODES)}") from None
+
+
+def decode_names() -> list[str]:
+    _build()
+    return sorted(_DECODES)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 __all__ = ["resolve_device", "on_hopper", "sample_spd", "check_f32",
+           "check_tensors",
            "CudaKernel", "KERNELS", "load_library", "build_library",
            "MAX_SMEM_BYTES", "data_ptr"]
 
@@ -81,13 +82,24 @@ def sample_spd(rng, b: int, n: int):
 def check_f32(name: str, *tensors: torch.Tensor) -> torch.device:
     """Validate a kernel's tensor arguments: float32, contiguous, on one
     CPU or CUDA device.  Returns that device."""
+    return check_tensors(name, *tensors, dtypes=(torch.float32,))
+
+
+def check_tensors(name: str, *tensors: torch.Tensor,
+                  dtypes: tuple) -> torch.device:
+    """Validate a kernel's tensor arguments: one dtype among ``dtypes``
+    for all of them, contiguous, on one CPU or CUDA device.  Returns that
+    device."""
     for t in tensors:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected tensors, got {type(t)}")
     dev = tensors[0].device
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != tensors[0].dtype:
+            want = " or ".join(str(d).removeprefix("torch.")
+                               for d in dtypes)
+            raise TypeError(f"{name}: expected {want} tensors of one "
+                            f"dtype, got {[x.dtype for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
         if t.device != dev:

@@ -24,8 +24,9 @@ from repro_torch.kernels.common import CudaKernel, check_f32
 
 
 def qr_plain(a: torch.Tensor):
-    """Plain PyTorch version of K17: a (B, M, N), M >= N -> Q (B, M, M),
-    R (B, M, N) with a = Q @ R."""
+    """Plain PyTorch version of K17: a (B, M, N) -> Q (B, M, M), R
+    (B, M, N) with a = Q @ R and R zero below its diagonal (an upper
+    trapezoid when M < N)."""
     bsz, m, n = a.shape
     rows = torch.arange(m, device=a.device)
     r = a
@@ -60,14 +61,14 @@ _KERNEL = CudaKernel(
 
 
 def qr_fused(a: torch.Tensor):
-    """a: (B, M, N) float32, contiguous, M >= N -> (Q (B, M, M), R
-    (B, M, N)) with a = Q @ R and R zero below its diagonal.  K17 on a
-    CUDA tensor (one launch; a lane past shared memory works in Q and R
-    in device memory), its plain version on a CPU one."""
+    """a: (B, M, N) float32, contiguous, any M and N -> (Q (B, M, M), R
+    (B, M, N)) with a = Q @ R and R zero below its diagonal (for M < N,
+    min(N, M - 1) reflectors leave R an upper trapezoid).  K17 on a CUDA
+    tensor (one launch; a lane past shared memory works in Q and R in
+    device memory), its plain version on a CPU one."""
     dev = check_f32("qr", a)
-    if a.dim() != 3 or a.shape[1] < a.shape[2]:
-        raise ValueError(f"qr: expected (B, M, N) with M >= N, got "
-                         f"{tuple(a.shape)}")
+    if a.dim() != 3:
+        raise ValueError(f"qr: expected (B, M, N), got {tuple(a.shape)}")
     if dev.type == "cpu":
         return qr_plain(a)
     bsz, m, n = a.shape

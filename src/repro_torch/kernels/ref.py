@@ -3,7 +3,7 @@ run — the ground truth for allclose tests and the serving stack's
 per-job spot check.
 
 These are deliberately unfused library calls (``torch.linalg``,
-``torch.fft``, ``conv1d``) and, for the QR, the Householder loop in
+``torch.fft``, ``conv1d``, ``matmul`` and einsum) and, for the QR, the Householder loop in
 unfused tensor ops, the counterparts of the reference's
 ``repro/kernels/ref.py`` oracles (and of its ``backend="xla"`` paths:
 a caller that wants one calls it by name).  This module is the only place
@@ -143,6 +143,11 @@ def ridge_solve(a: torch.Tensor, b: torch.Tensor, *,
     return torch.linalg.solve(g, torch.einsum("bmn,bmk->bnk", a, b))
 
 
+def gemm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ y (K, N) accumulated in float32, in x's dtype."""
+    return (x.float() @ y.float()).to(x.dtype)
+
+
 def fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Valid-mode correlation-style FIR matching the kernel tap order:
     y[i] = sum_j h[j] * x[i + j].  On a CUDA tensor cuDNN computes it in
@@ -161,3 +166,28 @@ def pusch_fft(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     packed into stacked planes.  (B, A, NF) re/im -> (B, 2, A, NF)."""
     z = torch.fft.fft(torch.complex(xr, xi))
     return torch.stack([z.real.to(xr.dtype), z.imag.to(xi.dtype)], dim=1)
+
+
+# ---------------- LM-side kernels ----------------
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, scale: float | None = None,
+        bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Reference attention. q: (B,H,S,D), k/v: (B,Hkv,S,D); GQA by head
+    replication; float32 softmax, its weights cast to v's dtype."""
+    h, s, d = q.shape[1], q.shape[2], q.shape[3]
+    hkv = k.shape[1]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    if bias is not None:
+        logits = logits + bias
+    if causal:
+        qi = torch.arange(s, device=q.device)[:, None]
+        ki = torch.arange(k.shape[2], device=q.device)[None, :]
+        logits = torch.where(ki <= qi, logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)

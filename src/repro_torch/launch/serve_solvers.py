@@ -52,6 +52,7 @@ import math
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import kernels as K
 from repro_torch.kernels.common import sample_spd
@@ -404,6 +405,185 @@ def run_pusch(chained: bool, *, ticks: int = 4, lanes: int = 4,
     }
 
 
+# ---------------- mixed solver + decode traffic ----------------
+
+_DECODE_MODELS: dict = {}
+
+
+def decode_model(device=None):
+    """The smoke-scale LM ``(cfg, params)`` shared by every decode
+    scenario in this launcher: phi4-mini-3.8b's smoke config with random
+    weights from a generator seeded 0 on ``device`` (default ``cuda``),
+    built once per device.  Its weights are not the reference's (the two
+    frameworks' generators differ); the committed decode golden does not
+    depend on them (``eos_id=-1``)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.models import transformer as T
+    dev = resolve_device(device)
+    if dev not in _DECODE_MODELS:
+        cfg = get_smoke("phi4-mini-3.8b")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        _DECODE_MODELS[dev] = (cfg, T.init_params(gen, cfg))
+    return _DECODE_MODELS[dev]
+
+
+def decode_prompt(length: int, seed: int) -> list[int]:
+    """Deterministic seed-keyed prompt tokens — the form committed
+    decode traces store prompts in (never raw token arrays)."""
+    rng = np.random.default_rng(seed)
+    return [int(t) for t in rng.integers(2, 500, size=length)]
+
+
+def decode_trace(ticks: int, seed: int = 0) -> list[dict]:
+    """The canonical mixed solver+decode workload: per tick, one hard
+    and one best-effort MMSE bulk chunk (solver lane traffic) plus two
+    decode requests — one hard greedy, one best-effort (periodically
+    sampled) — with prompt/output lengths that VARY per tick.  The
+    heterogeneity is the point: lockstep pool decode runs every pool
+    member to the longest prompt and longest ``max_new`` of its
+    generation and rebuilds the cache between pools, so on this trace
+    continuous per-slot batching strictly beats it in tokens per step at
+    the same budget."""
+    trace, seq = [], 0
+    for t in range(ticks):
+        for i in range(2):
+            trace.append(dict(
+                tick=t, kind="solve", pipeline="mmse_equalize", n=8, k=2,
+                priority="hard" if i == 0 else "best_effort",
+                deadline_ticks=3.0, seed=seed * 100003 + seq))
+            seq += 1
+        trace.append(dict(
+            tick=t, kind="decode", prompt_len=1 + t % 4,
+            max_new=2 + (3 * t) % 7, temperature=0.0, priority="hard",
+            deadline_ticks=8.0, seed=seed * 100003 + seq))
+        seq += 1
+        trace.append(dict(
+            tick=t, kind="decode", prompt_len=1 + (t * 2) % 5,
+            max_new=1 + (t * 5) % 9,
+            temperature=1.0 if t % 3 == 0 else 0.0,
+            priority="best_effort", deadline_ticks=12.0,
+            seed=seed * 100003 + seq))
+        seq += 1
+    return trace
+
+
+def replay_decode(trace: list[dict], *, lanes: int = 4,
+                  slots: int | None = None, max_len: int = 64,
+                  tick: float = 1.0, drain_ticks: int = 4,
+                  lockstep: bool = False, device=None):
+    """Replay a committed mixed solver+decode trace on a virtual clock:
+    submit each tick's solver jobs and decode requests, ``poll`` once
+    per tick (the attached policy round serves solver flushes AND up to
+    ``decode_steps_per_poll`` continuous-batching decode steps), keep
+    polling ``drain_ticks`` empty ticks, then ``run()``.  Returns
+    ``(mux, engine, requests, jobs)`` — the mux's event list interleaves
+    solver flush decisions with decode insert/step/done decisions, the
+    sequence ``tests/data/decode_golden.json`` pins.
+
+    The replay engine uses ``eos_id=-1`` (token ids are non-negative,
+    so EOS never fires): every request runs exactly ``max_new`` steps
+    and the scheduling decision sequence depends only on the trace's
+    lengths — never on model floating point.
+
+    ``lockstep=True`` is the equal-budget baseline: the SAME trace,
+    clock, mux and solver path, but the engine is NOT attached — decode
+    requests go straight to its FIFO and each tick runs one lockstep
+    pool drain (:meth:`~repro_torch.serve.decode.DecodeEngine.
+    run_lockstep`) instead of continuous steps."""
+    from repro_torch.serve import global_config
+    from repro_torch.serve.decode import DecodeEngine, Request
+    cfg, params = decode_model(device)
+    clock = ManualClock()
+    slots = global_config.decode_slots if slots is None else slots
+    engine = DecodeEngine(cfg, params, batch=slots, max_len=max_len,
+                          eos_id=-1, clock=clock)
+    mux = SolverMux(lanes=lanes, max_wait=0.0, clock=clock,
+                    policy=OverloadPolicy(budget=None,
+                                          cost_model=CostModel()),
+                    device=engine.device)
+    if not lockstep:
+        mux.attach_decode(engine)
+    by_tick: dict[int, list[dict]] = {}
+    for entry in trace:
+        by_tick.setdefault(int(entry["tick"]), []).append(entry)
+    last = max(by_tick) if by_tick else -1
+    requests, jobs = [], []
+    for t in range(last + 1 + drain_ticks):
+        for e in by_tick.get(t, ()):
+            deadline = e.get("deadline_ticks")
+            deadline = None if deadline is None \
+                else clock() + deadline * tick
+            if e.get("kind") == "decode":
+                r = Request(
+                    prompt=decode_prompt(e["prompt_len"], e["seed"]),
+                    max_new=e["max_new"],
+                    temperature=e.get("temperature", 0.0))
+                if lockstep:
+                    r.priority = e.get("priority", "best_effort")
+                    r.deadline = deadline
+                    engine.submit(r)
+                else:
+                    mux.submit_decode(
+                        r, deadline=deadline,
+                        priority=e.get("priority", "best_effort"))
+                requests.append(r)
+            else:
+                jobs.append(mux.submit(
+                    e["pipeline"],
+                    *job_args(e["pipeline"], e["n"], e["k"], e["seed"]),
+                    deadline=deadline,
+                    priority=e.get("priority", "best_effort")))
+        mux.poll()
+        if lockstep:
+            engine.run_lockstep()
+        clock.advance(tick)
+    mux.run()
+    if lockstep:
+        engine.run_lockstep()
+    return mux, engine, requests, jobs
+
+
+def run_decode_serve(continuous: bool, *, ticks: int = 6, lanes: int = 4,
+                     seed: int = 0, device=None) -> dict:
+    """Run the canonical mixed solver+decode trace end to end —
+    continuous per-slot batching through the mux (``continuous=True``)
+    or the lockstep pool baseline at the same budget — and summarize:
+    tokens per step (the throughput the continuous path must strictly
+    win), per-phase latency, slot reuses, and ``hard_lost`` (hard solver
+    jobs not done + hard decode requests not finished), required zero."""
+    trace = decode_trace(ticks, seed)
+    mux, engine, requests, jobs = replay_decode(
+        trace, lanes=lanes, lockstep=not continuous, device=device)
+    snap = mux.metrics() if continuous else engine.metrics()
+    d = snap.decode
+    tokens = sum(len(r.out) for r in requests)
+    steps = engine.steps
+    hard_lost = sum(1 for r in requests
+                    if r.priority == "hard" and not r.done)
+    hard_lost += sum(1 for j in jobs
+                     if j.priority == "hard" and j.state != "done")
+    return {
+        "continuous": continuous,
+        "requests": len(requests),
+        "done": sum(1 for r in requests if r.done),
+        "dropped": sum(1 for r in requests if r.dropped),
+        "tokens": tokens,
+        "steps": steps,
+        "tokens_per_step": tokens / steps if steps else math.nan,
+        "hard_lost": hard_lost,
+        "solver_jobs": len(jobs),
+        "solver_done": sum(1 for j in jobs if j.state == "done"),
+        "slot_reuses": d.slot_reuses,
+        "insert_p50": d.insert.p50,
+        "prefill_p50": d.prefill.p50,
+        "generate_p50": d.generate.p50,
+        "pending": mux.pending(),
+        "events": mux.drain_events(),
+    }
+
+
 def main(argv=None) -> dict | None:
     """Serve the TTI slot mix and print its SLO report.  Returns the
     run's summary (jobs, done, hard jobs dropped, the oracle spot-check's
@@ -459,15 +639,16 @@ def main(argv=None) -> dict | None:
                          "admission) instead of the TTI replay and print "
                          "the end-to-end DAG observables; combine with "
                          "--fault-trace for a mid-DAG stage fault")
-    ap.add_argument("--ticks", type=int, default=4,
-                    help="virtual ticks in the --pusch trace")
     ap.add_argument("--decode", action="store_true",
-                    help="not ported yet (the LM decode slice)")
+                    help="serve the canonical mixed solver+decode trace "
+                         "(continuous per-slot batching through the mux "
+                         "vs the lockstep pool baseline at the same "
+                         "budget) instead of the TTI replay and print "
+                         "the token-throughput observables")
+    ap.add_argument("--ticks", type=int, default=4,
+                    help="virtual ticks in the --pusch / --decode trace")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.decode:
-        ap.error("--decode: token decode (the LM side, K20-K21) is a "
-                 "later slice of the port")
     if args.chaos:
         ap.error("--chaos: the chaos scenario needs mesh-sharded lane "
                  "pools, a later slice of the port")
@@ -481,6 +662,8 @@ def main(argv=None) -> dict | None:
     sizes = [int(s) for s in args.sizes.split(",")]
     if args.pusch:
         return _main_pusch(args)
+    if args.decode:
+        return _main_decode(args)
 
     rng = np.random.default_rng(args.seed)
     clock = ManualClock()
@@ -616,6 +799,42 @@ def _main_pusch(args) -> dict:
               f"{staged['e2e_p50'] / chained['e2e_p50']:.2f}x e2e p50")
     return {"staged": {k: v for k, v in staged.items() if k != "events"},
             "chained": {k: v for k, v in chained.items() if k != "events"}}
+
+
+
+def _main_decode(args) -> dict:
+    """``--decode``: the mixed solver+decode trace, continuous through
+    the mux and lockstep at the same budget; prints both summaries and
+    returns them (without the event logs)."""
+    cont = run_decode_serve(True, ticks=args.ticks, lanes=args.lanes,
+                            seed=args.seed, device=args.device)
+    base = run_decode_serve(False, ticks=args.ticks, lanes=args.lanes,
+                            seed=args.seed, device=args.device)
+    for s in (cont, base):
+        mode = "continuous" if s["continuous"] else "lockstep"
+        print(f"decode serve [{mode:>10}] on {args.device}: "
+              f"requests={s['requests']} done={s['done']} "
+              f"dropped={s['dropped']} tokens={s['tokens']} "
+              f"steps={s['steps']} tokens/step={s['tokens_per_step']:.2f} "
+              f"hard_lost={s['hard_lost']} "
+              f"solver {s['solver_done']}/{s['solver_jobs']}")
+    print(f"  continuous: slot_reuses={cont['slot_reuses']} "
+          f"insert p50 (ticks)={cont['insert_p50']:.1f} "
+          f"prefill p50 (s)={cont['prefill_p50']:.2e} "
+          f"generate p50 (s)={cont['generate_p50']:.2e}")
+    print(f"  continuous-batching speedup: "
+          f"{cont['tokens_per_step'] / base['tokens_per_step']:.2f}x "
+          f"tokens/step at equal budget")
+    if cont["hard_lost"] or base["hard_lost"]:
+        raise RuntimeError("hard jobs/requests silently lost")
+    if cont["tokens"] != base["tokens"]:
+        raise RuntimeError("the trace served different token counts "
+                           "across modes")
+    if not cont["tokens_per_step"] > base["tokens_per_step"]:
+        raise RuntimeError("continuous batching failed to beat the "
+                           "lockstep baseline")
+    return {"continuous": {k: v for k, v in cont.items() if k != "events"},
+            "lockstep": {k: v for k, v in base.items() if k != "events"}}
 
 
 if __name__ == "__main__":

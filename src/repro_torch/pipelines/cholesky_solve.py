@@ -141,7 +141,15 @@ def cholesky_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
     """Solve a @ x = b for SPD a. a: (B,N,N), b: (B,N,M) -> x (B,N,M),
     float32 and contiguous.  K1 on a CUDA tensor (one launch, factor and
     both substitutions fused per lane; a lane past shared memory in a
-    device work buffer), its plain version on a CPU one."""
+    device work buffer), its plain version on a CPU one.
+
+    bfloat16 a and b are widened to float32, solved as above and the
+    answer rounded back to bfloat16: bf16 in, bf16 out, as the
+    reference's K1 takes it, with the arithmetic in float32."""
+    if a.dtype == b.dtype == torch.bfloat16:
+        return cholesky_solve_fused(a.float().contiguous(),
+                                    b.float().contiguous(),
+                                    eps=eps).to(torch.bfloat16)
     dev = check_f32("cholesky_solve", a, b)
     bsz, n, n2 = a.shape
     b2, n3, m = b.shape

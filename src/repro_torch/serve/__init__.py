@@ -3,6 +3,10 @@
 
   core     EngineCore (+ FifoEngineCore), ManualClock, registry-driven
            pad_group; the device launches run on
+  decode   DecodeEngine / Request       (LM continuous batching:
+                                         per-slot positions, paged KV
+                                         slot reuse, per-slot sampling;
+                                         attaches to SolverMux)
   solver   PipelineEngine / SolveJob / VariantDispatcher
   mux      SolverMux / OverloadPolicy   (mixed pipelines, shape-bucketed
                                          continuous batching, deadline-
@@ -33,18 +37,31 @@ from repro_torch.serve.cost import (CostModel, DriftStat,  # noqa: F401
                                     RobustEstimator)
 from repro_torch.serve.faults import (Fault, FaultInjector,  # noqa: F401
                                       InjectedLaunchError)
-from repro_torch.serve.metrics import (DropRecord, FailRecord,  # noqa: F401
+from repro_torch.serve.metrics import (DagStats, DecodeStats,  # noqa: F401
+                                       DropRecord, FailRecord,
                                        FaultStats, LatencyStats,
                                        LaunchRecord, MetricsSnapshot,
                                        PipelineStats, Recorder)
-from repro_torch.serve.mux import OverloadPolicy, SolverMux  # noqa: F401
+from repro_torch.serve.mux import DagJob, OverloadPolicy, SolverMux  # noqa: F401
 from repro_torch.serve.solver import (PipelineEngine,  # noqa: F401
                                       SolveJob, VariantDispatcher)
 from repro_torch.serve.tuning import BucketTuner  # noqa: F401
 
+
+def __getattr__(name):
+    # decode pulls in the model stack; load it lazily (PEP 562) so
+    # solver-only consumers do not pay for it
+    if name in ("DecodeEngine", "Request"):
+        from repro_torch.serve import decode
+        return getattr(decode, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "EngineCore", "FifoEngineCore", "ManualClock", "pad_group",
+    "DecodeEngine", "Request",
     "PipelineEngine", "SolveJob", "SolverMux", "VariantDispatcher",
+    "DagJob", "DagStats", "DecodeStats",
     "OverloadPolicy", "CostModel", "DriftStat", "RobustEstimator",
     "ServeConfig", "global_config", "BucketTuner",
     "DropRecord", "FailRecord", "FaultStats", "LatencyStats",

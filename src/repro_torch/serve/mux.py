@@ -143,9 +143,21 @@ orphaned.  ``dag_submit`` / ``dag_stage`` / ``dag_done`` / ``dag_fail``
 ``MetricsSnapshot.dags`` reports end-to-end latency per DAG; muxes that
 never see a DAG emit the same events and metrics as before.
 
+Token decode (LM traffic)
+-------------------------
+
+``attach_decode(engine)`` makes a :class:`repro_torch.serve.decode.
+DecodeEngine` the mux's token-traffic front-end: the engine shares the
+mux's recorder, clocks and event log, and each ``poll`` serves up to
+``decode_steps_per_poll`` continuous-batching steps, each priced by the
+cost model (``decode_cost``) against the policy budget — expired
+best-effort requests are shed, and a hard request overrides an
+exhausted budget.  ``run`` drains decode beside the solver buckets.
+``decode_insert`` / ``decode_step`` / ``decode_defer`` / ``decode_done``
+events join the audit trail.
+
 Not ported yet, and refused rather than approximated: mesh-sharded lane
-pools (``mesh_size > 1``) and token decode (``attach_decode``) — later
-slices.
+pools (``mesh_size > 1``) — a later slice.
 
 API sketch::
 
@@ -393,6 +405,9 @@ class SolverMux(EngineCore):
         self._pools: dict[str, _LanePool] = {}
         self._seq = 0
         self._dags: list[DagJob] = []
+        # token-decode front-end (attach_decode); None = solver-only mux
+        self.decode = None
+        self._decode_steps_per_poll = global_config.decode_steps_per_poll
         self.events: list[dict] = []
         # ---- launch supervision (module docstring) ----
         # injector stays None with no trace configured, keeping every
@@ -602,13 +617,104 @@ class SolverMux(EngineCore):
                 return progressed
             progressed = True
 
+    # ---------------- token decode traffic ----------------
+
     def attach_decode(self, engine) -> None:
-        """Token decode is not ported yet."""
-        raise NotImplementedError("token decode is a later slice")
+        """Register a :class:`repro_torch.serve.decode.DecodeEngine` as
+        this mux's token-traffic front-end, so ONE scheduler owns both
+        solver and decode traffic:
+
+        * the engine adopts the mux's recorder and both clocks — decode
+          launches, per-request latencies and per-phase samples land in
+          the same :meth:`metrics` snapshot (``snapshot.decode`` plus a
+          ``"decode"`` entry in ``snapshot.pipelines``);
+        * engine lifecycle events (``decode_insert`` / ``decode_done``)
+          are folded into the mux event log, so virtual-clock replays
+          pin decode scheduling decisions event for event like solver
+          flushes;
+        * measured step wall-clock feeds
+          :meth:`repro_torch.serve.cost.CostModel.observe_decode`.
+
+        :meth:`poll` then serves up to ``decode_steps_per_poll``
+        continuous-batching steps per round under the attached
+        :class:`OverloadPolicy`, and :meth:`run` drains decode alongside
+        solver buckets."""
+        if self.decode is not None:
+            raise ValueError("a decode engine is already attached")
+        engine.recorder = self.recorder
+        engine.clock = self.clock
+        engine.wall = self.wall
+        engine.event_cb = lambda kind, t, **f: self._event(kind, t=t, **f)
+        cm = self.cost_model
+        if cm is not None:
+            engine.observe_cb = cm.observe_decode
+        self.decode = engine
+        self._event("decode_attach", t=self.clock(),
+                    spec=engine.spec.name, slots=engine.lanes,
+                    max_len=engine.max_len)
+
+    def submit_decode(self, request, *, deadline: float | None = None,
+                      priority: str = "best_effort"):
+        """Submit one decode :class:`~repro_torch.serve.decode.Request`
+        to the attached engine under the mux's admission classes:
+        ``priority`` and ``deadline`` mean exactly what they mean for
+        :meth:`submit`.  The request joins the mux's global ``seq``
+        numbering so decode and solver events interleave unambiguously
+        in the event log."""
+        if self.decode is None:
+            raise RuntimeError("no decode engine attached; call "
+                               "attach_decode() first")
+        if priority not in SolveJob.PRIORITIES:
+            raise ValueError(f"priority must be one of "
+                             f"{SolveJob.PRIORITIES}, got {priority!r}")
+        self._seq += 1
+        request.seq = self._seq
+        request.priority = priority
+        request.deadline = deadline
+        return self.decode.submit(request)
 
     def _poll_decode(self, now: float) -> list:
-        """Decode service seam: no decode engine can be attached yet."""
-        return []
+        """One decode service round: shed expired best-effort queue
+        entries (hard never shed), then run up to
+        ``decode_steps_per_poll`` continuous-batching steps, each priced
+        through the cost model and admitted against the policy budget.
+        Decode budget is accounted separately from the solver flush
+        budget within a poll — the same per-poll figure, so a saturated
+        solver round cannot starve token traffic to zero — and a pending
+        hard-deadline request overrides budget exhaustion."""
+        eng = self.decode
+        if eng is None:
+            return []
+        pol = self.policy
+        if pol is not None and pol.shed:
+            for r in eng.shed_expired(now):
+                self.recorder.record_drop("decode", now, r.priority,
+                                          "expired")
+                self.recorder.record_decode_shed()
+                self._event("drop", t=now, pipeline="decode", seq=r.seq,
+                            deadline=r.deadline, reason="expired")
+        cm = self.cost_model
+        budget = math.inf if pol is None or pol.budget is None \
+            else pol.budget
+        spent, steps = 0.0, 0
+        done: list = []
+        while eng.has_work() and steps < self._decode_steps_per_poll:
+            active = eng.occupied() or min(eng.pending(), eng.lanes)
+            price = cm.decode_cost("generate",
+                                   active * eng.token_flops) \
+                if cm is not None else 0.0
+            if spent + price > budget and not eng.hard_waiting():
+                self._event("decode_defer", t=now, queued=eng.pending(),
+                            active=eng.occupied(), cost=_round(price))
+                break
+            done.extend(eng.step())
+            spent += price
+            steps += 1
+        if steps:
+            self._event("decode_step", t=now, steps=steps,
+                        done=len(done), active=eng.occupied(),
+                        queued=eng.pending(), cost=_round(spent))
+        return done
 
     def observe_launch(self, spec, variant, key: tuple, lanes: int,
                        measured: float) -> None:
@@ -646,7 +752,12 @@ class SolverMux(EngineCore):
         return snap
 
     def pending(self) -> int:
-        return sum(p.queued() for p in self._pools.values())
+        n = sum(p.queued() for p in self._pools.values())
+        if self.decode is not None:
+            # queued requests plus occupied slots: both are unfinished
+            # work run() is on the hook to drain
+            n += self.decode.pending() + self.decode.occupied()
+        return n
 
     def drain_events(self) -> list[dict]:
         """Return and clear the scheduling-decision event log.  When the
@@ -953,7 +1064,10 @@ class SolverMux(EngineCore):
         """Drain everything queued (deadline-priority bucket order) and
         return the completed jobs.  Drain is unconditional: no budget,
         no shedding — every still-queued job is served (riders a
-        supervised launch detached are picked up by the next pass)."""
+        supervised launch detached are picked up by the next pass).  An
+        attached decode engine is drained the same way: unbudgeted
+        continuous-batching steps interleave with the flush passes until
+        its queue and every slot are empty."""
         done: list[SolveJob] = []
         while True:
             flushed = False
@@ -962,7 +1076,11 @@ class SolverMux(EngineCore):
                 done.extend(served)
                 flushed = flushed or bool(served)
             advanced = self._advance_dags(self.clock())
-            if not flushed and not advanced:
+            stepped = False
+            if self.decode is not None and self.decode.has_work():
+                self.decode.step()
+                stepped = True
+            if not flushed and not advanced and not stepped:
                 return done
 
     # ---------------- overload policy ----------------

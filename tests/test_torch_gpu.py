@@ -1,15 +1,18 @@
-"""The hand-written Hopper kernels (K1-K17, K19) on the card, held
-against their plain PyTorch versions on the same card inputs, K1-K4 and
-K15-K17 on lanes past shared memory (their global form), the tiled
-K12-K14 with slabs streamed past shared memory, the served DAGs' golden
-replay, and the launch counts of the unfused baselines and the DSP
-chain on the card.
+"""The hand-written Hopper kernels (K1-K20) on the card, held against
+their plain PyTorch versions on the same card inputs, K1-K4 and K15-K17
+on lanes past shared memory (their global form), the tiled K12-K14 with
+slabs streamed past shared memory, the served DAGs' golden replay, the
+launch counts of the unfused baselines and the DSP chain, K17 on a wide
+matrix and K1 on bf16, K18 and K20 at their registry cases and the LM
+shapes, the smoke model's prefill on K20 and the decode golden replay on
+the card.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import importlib
 import json
 import pathlib
 
@@ -20,12 +23,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels as TK  # noqa: E402
 from repro_torch import pipelines as tp  # noqa: E402
-from repro_torch.kernels import cholesky as tchol  # noqa: E402
-from repro_torch.kernels import fft as tfft  # noqa: E402
-from repro_torch.kernels import fir as tfir  # noqa: E402
-from repro_torch.kernels import qr as tqr  # noqa: E402
-from repro_torch.kernels import svd as tsvd  # noqa: E402
-from repro_torch.kernels import trisolve as ttri  # noqa: E402
+tchol = importlib.import_module("repro_torch.kernels.cholesky")
+tfft = importlib.import_module("repro_torch.kernels.fft")
+tfir = importlib.import_module("repro_torch.kernels.fir")
+tqr = importlib.import_module("repro_torch.kernels.qr")
+tsvd = importlib.import_module("repro_torch.kernels.svd")
+ttri = importlib.import_module("repro_torch.kernels.trisolve")
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.common import KERNELS, on_hopper  # noqa: E402
 from repro_torch.serve import ManualClock, SolverMux  # noqa: E402
@@ -710,3 +713,182 @@ def test_dsp_pipeline_launches_its_five_kernels(hopper, capsys):
                       "svd": 1}
     assert capsys.readouterr().out.rstrip().endswith("pipeline OK.")
     assert errors["nmse"] < 1.0 and errors["fir_err"] < 1e-4
+
+
+# ---------------- the repairs (wide QR, bf16 K1) ----------------
+
+def test_qr_kernel_takes_a_wide_matrix(hopper):
+    """K17 on M < N (2, 4, 6): min(N, M - 1) reflectors, Q (2, 4, 4), R
+    (2, 4, 6) zero below its diagonal, equal to the plain version."""
+    a = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 4, 6)).astype(np.float32)).to(hopper)
+    before = _launches("qr")
+    q, r = tqr.qr_fused(a)
+    torch.cuda.synchronize()
+    assert _launches("qr") == before + 1
+    assert q.shape == (2, 4, 4) and r.shape == (2, 4, 6)
+    wq, wr = tqr.qr_plain(a)
+    assert_close(q.cpu().numpy(), wq.cpu().numpy(), rtol=1e-4, name="Q")
+    assert_close(r.cpu().numpy(), wr.cpu().numpy(), rtol=1e-4, name="R")
+    assert torch.all(torch.tril(r, -1) == 0)
+    assert_close((q @ r).cpu().numpy(), a.cpu().numpy(), rtol=1e-4,
+                 name="QR")
+
+
+def test_cholesky_solve_kernel_takes_bf16(hopper):
+    """K1 on the reference's bf16 case: computed in float32 (one launch),
+    returned in bf16, within the reference's rtol of 8e-2."""
+    from repro_torch.kernels.common import sample_spd
+    rng = np.random.default_rng(0)
+    a = sample_spd(rng, 2, 16)
+    b = rng.standard_normal((2, 16, 2)).astype(np.float32)
+    before = _launches("cholesky_solve")
+    got = tp.cholesky_solve_fused(
+        torch.from_numpy(a).to(hopper, torch.bfloat16),
+        torch.from_numpy(b).to(hopper, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert _launches("cholesky_solve") == before + 1
+    assert got.dtype == torch.bfloat16
+    want = np.linalg.solve(a.astype(np.float64), b.astype(np.float64))
+    assert_close(got.float().cpu().numpy(), want, rtol=8e-2,
+                 name="chol_solve-bf16")
+
+
+# ---------------- the LM kernels (K18, K20) and the LM path ----------------
+
+tgemm = importlib.import_module("repro_torch.kernels.gemm")
+tattn = importlib.import_module("repro_torch.kernels.attention")
+
+# bf16 answers round once to bf16 (2^-8 relative) on both faces; the
+# sums before that rounding differ in order only
+BF16_RTOL = 1e-2
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (64, 64, 64, "float32"), (128, 128, 128, "float32"),
+    (1000, 300, 700, "float32"), (129, 257, 65, "float32"),
+    (1000, 300, 700, "bfloat16"), (1, 1, 1, "float32")])
+def test_gemm_kernel_matches_plain_version(hopper, m, k, n, dtype):
+    """K18 at the registry's squares (64, 128), at shapes that are not
+    multiples of its 128 x 128 tile, and in bf16, against its plain
+    version on the same card inputs: IEEE float32 products (no TF32), so
+    float32 is held to the spec's rtol of 1e-4."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(hopper, dt)
+    y = torch.from_numpy(rng.standard_normal((k, n)).astype(
+        np.float32)).to(hopper, dt)
+    before = _launches("gemm")
+    got = tgemm.gemm_fused(x, y)
+    torch.cuda.synchronize()
+    assert _launches("gemm") == before + 1 and got.dtype == dt
+    rtol = 1e-4 if dtype == "float32" else BF16_RTOL
+    assert_close(got.float().cpu().numpy(),
+                 tgemm.gemm_plain(x, y).float().cpu().numpy(), rtol=rtol,
+                 name=f"gemm {m}x{k}x{n} {dtype}")
+
+
+def test_gemm_registry_cases_and_guard_on_card(hopper):
+    from repro_torch.kernels import ref as tref
+    spec = TK.get("gemm")
+    for n in spec.sizes:
+        x, y = (a.to(hopper) for a in spec.make_case(
+            np.random.default_rng(n), n))
+        got = TK.gemm(x, y, device=hopper)
+        assert_close(got.cpu().numpy(), tref.gemm(x, y).cpu().numpy(),
+                     rtol=spec.rtol, name=f"gemm n={n}")
+    with pytest.raises(ValueError):
+        tgemm.gemm_fused(torch.ones((4, 5), device=hopper),
+                         torch.ones((6, 3), device=hopper))
+
+
+# K20 element by element, |got - want| <= rtol (softmax(q k^T) |v| +
+# |want|): rounding p to bf16 moves each term of P V by at most 2^-8 of
+# itself and the answer rounds to 2^-8 of itself, 5e-3 covering both;
+# float32 differs by summation order and exp's last bits only
+ATTN_RTOLS = {"float32": 1e-4, "bfloat16": 5e-3}
+
+
+@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("s", [96, 128, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_version(hopper, d, s, causal, dtype):
+    """K20 at phi4-mini's head width (128), the registry's (64) and the
+    smoke configs' (8), at S = 96, 128 and 512, causal and not, GQA 4/2,
+    against its plain version on the same card inputs.  The scores are
+    peaked (q and k at sigma 1.5, so each row's max moves from kv tile
+    to kv tile) and a score of ~18 is planted in the last kv tile (q
+    with a common component 3 / sqrt(D), the key at s - 1 - s // 16 all
+    6), where the running max jumps and all before must be rescaled."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(d + s)
+    q = rng.standard_normal((1, 4, s, d)) * 1.5 + 3.0 / np.sqrt(d)
+    k = rng.standard_normal((1, 2, s, d)) * 1.5
+    k[:, :, s - 1 - s // 16] = 6.0
+    v = rng.standard_normal((1, 2, s, d))
+    q, k, v = (torch.from_numpy(a.astype(np.float32)).to(hopper, dt)
+               for a in (q, k, v))
+    before = _launches("flash_attention")
+    got = tattn.flash_attention_fused(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _launches("flash_attention") == before + 1
+    want = tattn.flash_attention_plain(q, k, v, causal=causal).double()
+    scale = tattn.flash_attention_plain(q.float(), k.float(),
+                                        v.float().abs(), causal=causal)
+    err = (got.double() - want).abs()
+    tol = ATTN_RTOLS[dtype] * (scale.double() + want.abs())
+    worst = float((err / tol).max())
+    assert worst <= 1.0, (f"flash d={d} s={s} {dtype}: |diff| reaches "
+                          f"{worst:.3g} of its limit")
+
+
+def test_flash_registry_case_and_guards_on_card(hopper):
+    from repro_torch.kernels import ref as tref
+    spec = TK.get("flash_attention")
+    q, k, v = (a.to(hopper) for a in spec.make_case(
+        np.random.default_rng(0), 128))
+    assert_close(TK.flash_attention(q, k, v, device=hopper).cpu().numpy(),
+                 tref.mha(q, k, v).cpu().numpy(), rtol=spec.rtol,
+                 name="flash registry case")
+    bad = torch.ones((1, 2, 200, 64), device=hopper)
+    with pytest.raises(ValueError):                 # 200 % 128 != 0
+        tattn.flash_attention_fused(bad, bad, bad)
+
+
+def test_prefill_on_flash_kernel_matches_xla_impl(hopper):
+    """The smoke model's prefill with attn_impl="flash" launches K20 once
+    a layer and gives the logits of attn_impl="xla" (f32 compute), at
+    S = 256: two kv tiles, so the online softmax rescales."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tT
+    cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"),
+                              compute_dtype="float32", attn_impl="flash")
+    gen = torch.Generator(device=hopper)
+    gen.manual_seed(0)
+    p = tT.init_params(gen, cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256))).to(hopper)      # two kv tiles of 128
+    before = _launches("flash_attention")
+    got = tT.prefill(p, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert _launches("flash_attention") == before + cfg.n_layers
+    want = tT.prefill(p, dataclasses.replace(cfg, attn_impl="xla"),
+                      {"tokens": toks})
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-3,
+                 name="flash-vs-xla prefill")
+
+
+def test_decode_golden_replay_on_card(hopper):
+    """The committed mixed solver+decode trace through the port's mux on
+    the card, event for event equal to the golden file."""
+    from repro_torch.launch.serve_solvers import replay_decode
+    data = pathlib.Path(__file__).parent / "data"
+    trace = json.loads((data / "decode_trace.json").read_text())
+    mux, _, requests, jobs = replay_decode(trace, device=hopper)
+    assert all(r.done for r in requests)
+    assert all(j.state == "done" for j in jobs)
+    got = json.dumps(mux.drain_events(), indent=1) + "\n"
+    assert got == (data / "decode_golden.json").read_text()

@@ -11,6 +11,8 @@ reconstruction because its factors are sign/order ambiguous.  The CUDA
 kernels are held against these plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -24,9 +26,9 @@ from repro.kernels.fft import fft_pallas  # noqa: E402
 from repro.kernels.fft import fft_tables as jfft_tables  # noqa: E402
 from repro_torch import kernels as TK  # noqa: E402
 from repro_torch import pipelines as tp  # noqa: E402
-from repro_torch.kernels import fft as tfft  # noqa: E402
+tfft = importlib.import_module("repro_torch.kernels.fft")
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels import svd as tsvd  # noqa: E402
+tsvd = importlib.import_module("repro_torch.kernels.svd")
 
 from conftest import assert_close  # noqa: E402
 

@@ -17,7 +17,8 @@ from repro_torch.serve import ManualClock, SolverMux  # noqa: E402
 SPECS = ["cholesky_solve", "qr_solve", "mmse_equalize"]
 # the kernel specs (the primitives and the DAGs' kernels) and the DAG
 # stages, beside the three pipelines
-DAG_SPECS = ["cholesky", "trisolve", "qr", "svd", "fir", "fft", "pusch_fft",
+DAG_SPECS = ["cholesky", "trisolve", "qr", "svd", "gemm", "fir", "fft",
+             "flash_attention", "pusch_fft",
              "pusch_chanest", "pusch_chain", "svd_factor", "svd_apply"]
 
 

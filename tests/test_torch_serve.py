@@ -113,7 +113,8 @@ def test_main_cpu_run_reports_summary():
     assert summary["oracle_rel_err"] < 1e-3
 
 
-@pytest.mark.parametrize("flag", [["--pusch", "--mesh", "2"], ["--decode"],
+@pytest.mark.parametrize("flag", [["--pusch", "--mesh", "2"],
+                                  ["--decode", "--mesh", "2"],
                                   ["--chaos"], ["--mesh", "2"]])
 def test_main_refuses_later_slices(flag, capsys):
     with pytest.raises(SystemExit):
@@ -122,11 +123,14 @@ def test_main_refuses_later_slices(flag, capsys):
 
 
 def test_mux_refuses_what_is_not_ported():
+    """Mesh-sharded lane pools, and models of the families a later slice
+    brings (token decode itself is served since the LM slice)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tT
     with pytest.raises(NotImplementedError, match="later slice"):
         SolverMux(lanes=2, mesh_size=2, device="cpu")
-    mux = SolverMux(lanes=2, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        mux.attach_decode(object())
+        tT.init_params(torch.Generator(), get_smoke("zamba2-2.7b"))
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
