@@ -9,7 +9,7 @@ Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (nvidia-smi), TF32 off;
   2. build   — every kernel in src/repro_torch/csrc built from source;
-  3. kernels — K1-K17 and K19 held against their plain PyTorch versions
+  3. kernels — K1-K21 held against their plain PyTorch versions
                and the oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
                PRBs x 12 subcarriers, 3GPP TS 38.101-1 Table 5.3.2-1;
@@ -42,14 +42,22 @@ Phases, each fatal on failure:
                The LM kernels: K18 (GEMM) at the registry's squares and
                through ops.gemm at 1000 x 300 @ 300 x 700, 129 x 257 @
                257 x 65, 1 x 1 and in bf16; K20 (flash attention) at the
-               registry case and at D = 8, 64, 128 by S = 96, 128, 512,
-               causal and not, float32 and bf16 (GQA 24/8 at D = 128, 4/2
-               otherwise) and at phi4-mini's prefill shape (4, 24, 512,
-               128), on peaked scores with a large one planted in the
-               last kv tile (``attn_case``), element by element against
+               registry case and at D = 8, 64, 80, 128 by S = 96, 128,
+               512, causal and not, float32 and bf16 (GQA 24/8 at D =
+               128, 4/2 otherwise) and at phi4-mini's prefill shape (4,
+               24, 512, 128), on peaked scores with a large one planted in
+               the last kv tile (``attn_case``), element by element against
                the plain version and the float32 oracle within what p's
-               rounding allows (``ATTN_RTOLS``); guards: S = 200
-               and a mismatched K must raise;
+               rounding allows (``ATTN_RTOLS``), and at
+               zamba2-2.7b's prefill shape (4, 32, 512, 80); K21 (the
+               chunked SSD scan) at the registry case, zamba2-2.7b's
+               prefill shape (x (4, 32, 512, 160), B/C (4, 512, 64)
+               shared, chunk 128), xlstm-125m's (v_aug (4, 4, 512, 385),
+               B/C (4, 4, 512, 192) per head, chunk 64), S < chunk and
+               decays of 1 and 0, float32 and bf16, against its plain
+               version and the sequential oracle; guards: S = 200, a
+               mismatched K, S not dividing by K21's chunk and a chunk
+               past 128 must raise;
   4. serve   — the main paths, each with every kernel's launch count
                reset before and read after: the TTI slot mix
                (``repro_torch.launch.serve_solvers.main`` on two mixes and
@@ -74,15 +82,19 @@ Phases, each fatal on failure:
                exactly K18 4, K20 1); the committed decode trace through
                the port's mux replayed to ``decode_golden.json`` and
                ``serve_solvers --decode`` (K2 serves the solver jobs);
-               the LM serving path at phi4-mini-3.8b's full width
-               (``lm_path``, run at the start of phase 5 so that it is
-               timed there): prefill with ``attn_impl="flash"`` on 4
-               prompts of 512 and of 128 tokens (K20 exactly 32 times
-               each, finite logits equal to ``attn_impl="xla"``'s), the
-               128 tokens decoded one by one against the flash prefill,
-               and ``repro_torch.launch.serve --full`` (8 requests
-               through a mux, each greedy output the same when served
-               again alone on the same weights);
+               the LM serving paths at full width (``lm_path``, run at
+               the start of phase 5 so that they are timed there),
+               phi4-mini-3.8b, zamba2-2.7b and xlstm-125m, each from its
+               float32 weights with one bf16 copy kept: prefill with
+               ``attn_impl="flash"`` on 4 prompts of 512 and of 128
+               tokens (exactly K20 32 a call for phi4-mini; K21 54 and
+               K20 6 for zamba2; K21 9 for xLSTM), finite logits equal to
+               ``attn_impl="xla"``'s where there is attention, the 128
+               tokens decoded one by one against the prefill (float32
+               and bf16), and ``repro_torch.launch.serve --full`` (8
+               requests through a mux of 4 slots, so slots are reused,
+               each greedy output the same when served again alone on
+               the same weights);
   5. times   — each kernel at B = 3276 timed with CUDA events (cold L2)
                beside its bound, its plain version and, where one PyTorch
                call computes the same function, that call; the blocked
@@ -97,8 +109,10 @@ Phases, each fatal on failure:
                included) beside its fused kernel (K1, K4, K2).  K18 at
                64^2, 128^2, 1000 x 300 x 700 and 4096^3 (bf16 and float32,
                beside torch.matmul with TF32 off); K20 at the registry
-               case and phi4-mini's prefill shapes (beside
+               case and phi4-mini's and zamba2's prefill shapes (beside
                scaled_dot_product_attention with the KV heads repeated);
+               K21 at xlstm-125m's and zamba2-2.7b's prefill shapes in
+               bf16 (no PyTorch call computes the scan);
                the full-width prefill and decode step as wall time over a
                window of calls (the path is host-bound), and the kernels
                the card runs for each and its busy time by torch.profiler.
@@ -163,7 +177,8 @@ MID_RTOL = 1e-3
 # the oracle (tests/test_tiled.py::test_tiled_matches_oracle_large); the
 # tiled checks also print each answer's distance to a float64 solve.
 TILED_RTOL = 2e-3
-ORACLE_RTOLS = {"cholesky_solve_blocked": MID_RTOL,
+ORACLE_RTOLS = {"ssm_scan": 1e-3, "ops_ssm_scan": 1e-3,
+                "cholesky_solve_blocked": MID_RTOL,
                 "qr_solve_blocked": MID_RTOL,
                 "cholesky_solve_tiled": TILED_RTOL,
                 "qr_solve_tiled": TILED_RTOL,
@@ -171,6 +186,7 @@ ORACLE_RTOLS = {"cholesky_solve_blocked": MID_RTOL,
 # check key -> the kernel it runs (stage adapters run a kernel of their own)
 KERNEL_OF = {"pusch_fft": "fft", "svd_factor": "svd",
              "trisolve_upper": "trisolve", "ops_gemm": "gemm",
+             "ops_ssm_scan": "ssm_scan",
              "flash_attention_full": "flash_attention"}
 # (check key, registry spec, variant): the registry cases each kernel is
 # held to
@@ -226,11 +242,15 @@ MID_TIMES = {"cholesky_solve": ((250, None, "global"),),
              "qr_solve_blocked": ((128, None, None), (256, None, None))}
 TILED_TIMES = ("cholesky_solve_tiled", "qr_solve_tiled",
                "mmse_equalize_tiled")
-# the LM slice: phi4-mini-3.8b at its full published width (32 layers,
-# d_model 3072, 24 query and 8 KV heads of 128, d_ff 8192, vocabulary
-# 200,064; float32 weights, bfloat16 compute), prompts of B = 4 at S = 512
-# and 128 (the prefill <-> decode check feeds the 128 one by one)
-LM_ARCH = "phi4-mini-3.8b"
+# the LM paths at full published width (float32 weights, bfloat16
+# compute): phi4-mini-3.8b (dense: 32 layers, d_model 3072, 24 query and 8
+# KV heads of 128, d_ff 8192, vocabulary 200,064), zamba2-2.7b (hybrid: 54
+# Mamba2 layers of 32 heads x 160 columns, state 64, chunk 128, d_model
+# 2560, and one shared attention block of 32 heads x 80 applied after every
+# 9) and xlstm-125m (12 layers as 3 x (3 mLSTM + 1 sLSTM), d_model 768, 4
+# heads, the scan's P = 385 and N = 192, chunk 64); prompts of B = 4 at S =
+# 512 and 128 (the prefill <-> decode check feeds the 128 one by one)
+LM_ARCHS = ("phi4-mini-3.8b", "zamba2-2.7b", "xlstm-125m")
 LM_BATCH = 4
 LM_SEQS = (512, 128)
 LM_PREFILL_REPS = 5          # prefill calls in each timed window
@@ -242,15 +262,30 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM, bfloat16 tensor cores, dense
 # (tests/test_models.py::test_prefill_decode_consistency).
 BF16_RTOL = 2e-2
 LM_RTOL = 5e-2
+# The LM paths' two comparisons, flash prefill vs xla prefill and
+# token-by-token decode vs prefill, are made in float32 compute (with a
+# float32 KV cache), where both sides are exact but for rounding: within
+# F32_LM_RTOL (float32 sums in other orders through up to 54 layers).  In
+# bf16 the answers drift from float32 with depth, because the random-weight
+# stacks amplify any perturbation: rounding the weights alone (float32
+# compute on the bf16 weights) moves zamba2-2.7b's logits by about half
+# their size.  So each bf16 answer is held to the float32 prefill within
+# a fixed cap for its family (LM_BF16_CAPS: the reference's 5e-2 for the
+# dense model, which reads 2e-2; xLSTM's 12 layers read 0.18 and zamba2's
+# 54 read 0.49-0.78, deterministic from the seed), the argmax rule holds
+# between the two bf16 sides, and K21 is held apart from the drift
+# (scan_witness).
+F32_LM_RTOL = 1e-3
+LM_BF16_CAPS = {"dense": LM_RTOL, "ssm": 0.25, "hybrid": 0.95}
 # K20 element by element, |got - want| <= rtol (softmax(q k^T) |v| +
 # |want|): rounding p to bf16 moves each term of P V by at most 2^-8 of
 # itself (so the sum by 2^-8 of softmax |v|) and the answer rounds to
 # 2^-8 of itself; 5e-3 covers both with room for float32 sums.  Float32
 # differs by summation order and exp's last bits only.
 ATTN_RTOLS = {"float32": 1e-4, "bfloat16": 5e-3}
-# K20 checks: head widths D (phi4-mini's 128 with its GQA 24/8, the
-# registry's 64 and the smoke configs' 8 with GQA 4/2) by S
-FLASH_DIMS = (8, 64, 128)
+# K20 checks: head widths D (phi4-mini's 128 with its GQA 24/8, zamba2's
+# 80, the registry's 64 and the smoke configs' 8 with GQA 4/2) by S
+FLASH_DIMS = (8, 64, 80, 128)
 FLASH_SEQS = (96, 128, 512)
 # timing rows, the head row last: K18 at the registry's squares, a shape
 # that is not a multiple of its tile and 4096^3 (bf16, then float32); K20
@@ -259,8 +294,31 @@ GEMM_TIMES = ((64, 64, 64, "float32"), (128, 128, 128, "float32"),
               (1000, 300, 700, "float32"), (4096, 4096, 4096, "bfloat16"),
               (4096, 4096, 4096, "float32"))
 FLASH_TIMES = ((1, 2, 2, 128, 64, "float32"),
+               (LM_BATCH, 32, 32, 512, 80, "bfloat16"),
                (LM_BATCH, 24, 8, 128, 128, "bfloat16"),
                (LM_BATCH, 24, 8, 512, 128, "bfloat16"))
+# K21 against its plain version: float32 sums in another order only
+# (RTOL); bfloat16 rounds each answer once from float32 in both, so two
+# answers may sit one bf16 step (2^-8 of themselves) apart: 8e-3.  Against
+# the float32 sequential oracle: the spec's 1e-3 (the chunked form regroups
+# the recurrence through exp(la_i - la_j)), 8e-3 in bf16.
+SSM_BF16_RTOL = 8e-3
+# K21 cases (label, B, H, S, P, N, B/C per head, chunk, decay range): the
+# registry case, zamba2-2.7b's prefill at S = 512 (x (4, 32, 512, 160), B/C
+# (4, 512, 64) shared, chunk 128), xlstm-125m's (v_aug (4, 4, 512, 385),
+# B/C (4, 4, 512, 192) per head, chunk 64), S < chunk and the decay limits
+# 1 and 0 (the 1e-20 clamp)
+SSM_CASES = (("registry", 1, 2, 64, 4, 8, False, 16, (0.8, 0.999)),
+             ("zamba2", LM_BATCH, 32, 512, 160, 64, False, 128,
+              (0.8, 0.999)),
+             ("xlstm", LM_BATCH, 4, 512, 385, 192, True, 64, (0.8, 0.999)),
+             ("S<chunk", 2, 3, 48, 9, 16, True, 128, (0.8, 0.999)),
+             ("decay 1", 1, 2, 256, 33, 8, False, 64, (1.0, 1.0)),
+             ("decay 0", 1, 2, 256, 33, 8, False, 64, (0.0, 0.0)))
+# K21 timing rows, the head row (zamba2) last: the two prefill shapes in
+# the path's bf16, (label, B, H, S, P, N, per head, chunk)
+SSM_TIMES = (("xlstm", LM_BATCH, 4, 512, 385, 192, True, 64),
+             ("zamba2", LM_BATCH, 32, 512, 160, 64, False, 128))
 
 
 @contextlib.contextmanager
@@ -364,22 +422,146 @@ def wall_ms(fn, reps):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def lm_path(dev, read_launches, reset_launches, kern) -> dict:
-    """The LM serving path at phi4-mini-3.8b's full width, on the card.
+def matrix_count(cfg) -> int:
+    """Matrix parameters of ``cfg`` at the reference's ``init_params``
+    shapes (embedding, head and every projection; norm scales and Mamba2's
+    decay and skip vectors left out).  The config's ``param_count`` is
+    exact for the dense and hybrid families; for xLSTM it is "rough" (it
+    counts an sLSTM layer as 5d^2 + 2 fd d where ``init_slstm`` makes 8d^2
+    + 2 fd d, and leaves out the mLSTM gates' 2d), so that family is
+    summed here from ``src/repro/models/xlstm.py``'s shapes."""
+    if cfg.family != "ssm":
+        return cfg.param_count()
+    d, cx = cfg.d_model, cfg.xlstm
+    di = cx.expand_m * d
+    dqk = int(di * cx.qk_frac)
+    fd = int(d * cx.expand_s_ffn)
+    groups = cfg.n_layers // (cx.m_per_group + cx.s_per_group)
+    mlstm = 2 * d * dqk + 2 * d * di + 2 * d + di * d
+    slstm = 8 * d * d + 2 * fd * d
+    return cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + groups * (
+        cx.m_per_group * mlstm + cx.s_per_group * slstm)
+
+
+def prefill_launches(cfg) -> dict:
+    """The kernels one prefill launches, and how often: K20 once an
+    attention block (each dense layer; each application of the hybrid's
+    shared block), K21 once a Mamba2 or mLSTM layer."""
+    if cfg.family == "hybrid":
+        return {"ssm_scan": cfg.n_layers,
+                "flash_attention": cfg.n_layers // cfg.shared_every}
+    if cfg.family == "ssm":
+        cx = cfg.xlstm
+        return {"ssm_scan": cfg.n_layers // (cx.m_per_group + cx.s_per_group)
+                * cx.m_per_group}
+    return {"flash_attention": cfg.n_layers}
+
+
+def tensors(tree) -> list:
+    """The tensors of a parameter tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tensors(v)]
+    return [tree]
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` set to ``value`` for the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def scan_witness(params, params32, cfg, cfg32, tokens, truth, logits,
+                 rel_of) -> dict:
+    """K21 on a model's path held apart from the bf16 stack's drift, at
+    S = LM_SEQS[0]: every scan of one bf16 prefill against the plain
+    version on the same inputs (the models' strided route, their own
+    decays), element by element within SSM_BF16_RTOL of |plain| + max
+    |plain| (a ratio < 1); the prefill with the plain version in place of
+    K21 against K21's, in float32 within F32_LM_RTOL and in bf16 within
+    the family's cap with argmax on >= 3 of 4 rows.  And what drives the
+    drift, each perturbation alone in float32 compute: the weights
+    rounded to bf16, the scan's decays rounded to bf16; with the share of
+    bf16 decays that round to 1.  These launches are not the main
+    path's."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as MT
+    KS = importlib.import_module("repro_torch.kernels.ssm_scan")
+    s = LM_SEQS[0]
+    batch = {"tokens": tokens[s]}
+    ratios, ones = [], []
+
+    def witnessed(x, a, b, c, *, chunk):
+        got = KS.ssm_scan_fused(x, a, b, c, chunk=chunk)
+        want = KS.ssm_scan_plain(x, a, b, c, chunk=chunk)
+        ratios.append(max(float(((g.double() - w.double()).abs() / (
+            SSM_BF16_RTOL * (w.double().abs().max() + w.double().abs())
+            + 1e-12)).max()) for g, w in zip(got, want)))
+        ones.append(float((a == 1).float().mean()))
+        return got
+
+    def decays_rounded(x, a, b, c, *, chunk):
+        return KS.ssm_scan_fused(x, a.bfloat16().float(), b, c, chunk=chunk)
+
+    with patched(ops, "ssm_scan_fused", witnessed):
+        MT.prefill(params, cfg, batch)
+    with patched(ops, "ssm_scan_fused", KS.ssm_scan_plain):
+        sub = MT.prefill(params, cfg, batch)
+        sub32 = MT.prefill(params32, cfg32, batch)
+    with patched(ops, "ssm_scan_fused", decays_rounded):
+        rel_a = rel_of(MT.prefill(params32, cfg32, batch), truth[s])
+    rel_w = rel_of(MT.prefill(MT.cast_params(params, cfg32), cfg32, batch),
+                   truth[s])
+    worst = max(ratios)
+    rel32, rel = rel_of(truth[s], sub32), rel_of(logits[s], sub)
+    cap = LM_BF16_CAPS[cfg.family]
+    agree = int((logits[s].argmax(-1) == sub.argmax(-1)).sum())
+    print(f"  K21 witness S={s}: {len(ratios)} scans of a bf16 prefill vs "
+          f"the plain version on their inputs, worst |diff| / limit "
+          f"{worst:.3f} (< 1, rtol {SSM_BF16_RTOL}); prefill with the plain "
+          f"scan in K21's place: float32 rel err {rel32:.3e} (< "
+          f"{F32_LM_RTOL}), bf16 {rel:.3e} (< {cap}), argmax on "
+          f"{agree}/{LM_BATCH} rows; drift from the float32 prefill, "
+          f"float32 compute with only the weights rounded to bf16 "
+          f"{rel_w:.3e}, only the scan's decays {rel_a:.3e}; bf16 decays "
+          f"rounded to 1: at most {max(ones):.3%} of a layer's",
+          flush=True)
+    if not (worst < 1 and rel32 < F32_LM_RTOL and rel < cap
+            and agree >= LM_BATCH - 1):
+        fail(f"{cfg.name}: K21 on the model's path differs from its "
+             f"plain version")
+    return {"scan_witness_ratio": worst, "scan_sub_f32_rel_err": rel32,
+            "scan_sub_rel_err": rel, "scan_sub_argmax": agree,
+            "drift_weights_rel_err": rel_w, "drift_decays_rel_err": rel_a,
+            "decays_at_1_share": max(ones)}
+
+
+def lm_path(arch, dev, read_launches, reset_launches, kern) -> dict:
+    """The LM serving path of ``arch`` at its full published width, on
+    the card.
 
     Prefill (``attn_impl="flash"``) on B = 4 prompts of S = 512, then 128:
-    K20 launches exactly once a layer, the logits are finite and match
+    K20 and K21 launch exactly as often as ``prefill_launches`` says, the
+    logits are finite and, for a model with attention, match
     ``attn_impl="xla"`` on the same weights (bf16 tolerance, argmax on >=
     3 of 4 rows).  Then the 128 tokens fed one by one through
     ``decode_step``: the last logits match the flash prefill's (the
     reference's prefill <-> decode check).  Then the serving entry point
     (``repro_torch.launch.serve``): a DecodeEngine of 4 slots, 256 tokens
     of cache, behind a mux serving 8 greedy requests of 3-40 prompt
-    tokens and 16 new ones, each output the same when served again
-    alone.  Returns the path's numbers: wall times over whole windows
-    (the path is host-bound, so CUDA events around a call would time the
-    host's enqueue), and what the card ran for one decode step and one
-    prefill by torch.profiler."""
+    tokens and 16 new ones (so slots are reused), each output the same
+    when served again alone.  Returns the path's numbers: wall times
+    over whole windows (the path is host-bound, so CUDA events around a
+    call would time the host's enqueue), and what the card ran for one
+    decode step and one prefill by torch.profiler."""
     import dataclasses
 
     import torch
@@ -390,85 +572,121 @@ def lm_path(dev, read_launches, reset_launches, kern) -> dict:
     from repro_torch.models import transformer as MT
     from repro_torch.serve.decode import DecodeEngine
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
-    # float32 weights from the generator, then the one bf16 copy the
-    # path runs on (the values each use would cast to)
-    params = MT.cast_params(MT.init_params(gen, cfg), cfg)
+    # float32 weights from the generator, and the bf16 copy the path runs
+    # on (the values each use would cast to); the float32 ones are kept
+    # for the float32 prefill <-> decode check, then freed
+    params32 = MT.init_params(gen, cfg)
+    params = MT.cast_params(params32, cfg)
     torch.cuda.synchronize()
-    leaves = [t for lp in params["layers"] for part in lp.values()
-              for t in (part.values() if isinstance(part, dict)
-                        else (part,))] \
-        + [params[k] for k in ("embed", "ln_f", "lm_head")]
+    leaves = tensors(params)
     n_params = sum(t.numel() for t in leaves)
-    # the config's analytical count leaves out the norm scales
     n_matrix = sum(t.numel() for t in leaves if t.dim() >= 2)
     print(f"LM: {cfg.name} at full width, {n_params} parameters, "
           f"{n_matrix} of them in matrices (float32 made, bf16 kept), built "
           f"in {time.perf_counter() - t0:.3f}s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated",
           flush=True)
-    if n_matrix != cfg.param_count():
-        fail(f"{n_matrix} matrix parameters, the config counts "
-             f"{cfg.param_count()}")
+    if n_matrix != matrix_count(cfg):
+        fail(f"{cfg.name}: {n_matrix} matrix parameters, the reference's "
+             f"shapes give {matrix_count(cfg)}")
     tokens = {s: torch.randint(0, cfg.vocab, (LM_BATCH, s), generator=gen,
                                device=dev) for s in LM_SEQS}
     out = {"arch": cfg.name, "params": n_params, "batch": LM_BATCH}
 
     reset_launches()
     logits = {}
-    flash = kern["flash_attention"]
+    per_call = prefill_launches(cfg)
     for s in LM_SEQS:
-        before = flash.launches
+        before = {k: kern[k].launches for k in per_call}
         logits[s] = MT.prefill(params, cfg, {"tokens": tokens[s]})
         torch.cuda.synchronize()
-        if flash.launches - before != cfg.n_layers:
-            fail(f"prefill S={s} launched K20 {flash.launches - before} "
-                 f"times, not once for each of {cfg.n_layers} layers")
+        got = {k: kern[k].launches - before[k] for k in per_call}
+        if got != per_call:
+            fail(f"{cfg.name} prefill S={s} launched {got}, not {per_call}")
         if not bool(torch.isfinite(logits[s]).all()):
-            fail(f"prefill S={s}: non-finite logits")
-    read_launches(f"LM prefill (flash) B={LM_BATCH} S={LM_SEQS}",
-                  ("flash_attention",),
-                  exact={"flash_attention": cfg.n_layers * len(LM_SEQS)})
-    xcfg = dataclasses.replace(cfg, attn_impl="xla")
-    for s in LM_SEQS:
-        want = MT.prefill(params, xcfg, {"tokens": tokens[s]})
-        rel = float((logits[s] - want).abs().max() / want.abs().max())
-        agree = int((logits[s].argmax(-1) == want.argmax(-1)).sum())
-        print(f"  prefill S={s}: flash vs xla logits rel err {rel:.3e} "
-              f"(< {LM_RTOL}), argmax on {agree}/{LM_BATCH} rows",
-              flush=True)
-        out[f"flash_vs_xla_rel_err_s{s}"] = rel
-        out[f"flash_vs_xla_argmax_s{s}"] = agree
-        if not (rel < LM_RTOL and agree >= LM_BATCH - 1):
-            fail(f"prefill S={s}: flash differs from xla")
+            fail(f"{cfg.name} prefill S={s}: non-finite logits")
+    read_launches(f"{cfg.name} prefill (flash) B={LM_BATCH} S={LM_SEQS}",
+                  tuple(per_call),
+                  exact={k: c * len(LM_SEQS) for k, c in per_call.items()})
+    # the float32 prefill on the float32 weights: the truth every bf16
+    # answer of this path is held to (LM_BF16_CAPS)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    truth = {s: MT.prefill(params32, cfg32, {"tokens": tokens[s]})
+             for s in LM_SEQS}
+    rel_of = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    if "flash_attention" in per_call:
+        xcfg = dataclasses.replace(cfg, attn_impl="xla")
+        for s in LM_SEQS:
+            want = MT.prefill(params, xcfg, {"tokens": tokens[s]})
+            want32 = MT.prefill(params32, dataclasses.replace(
+                cfg32, attn_impl="xla"), {"tokens": tokens[s]})
+            rel32 = rel_of(truth[s], want32)
+            rel = rel_of(logits[s], want)
+            rel_truth = rel_of(logits[s], truth[s])
+            limit = LM_BF16_CAPS[cfg.family]
+            agree = int((logits[s].argmax(-1) == want.argmax(-1)).sum())
+            print(f"  prefill S={s}: flash vs xla logits float32 rel err "
+                  f"{rel32:.3e} (< {F32_LM_RTOL}); bf16 rel err {rel:.3e}, "
+                  f"flash bf16 to float32 {rel_truth:.3e} (< {limit:.3e}), "
+                  f"argmax on {agree}/{LM_BATCH} rows", flush=True)
+            out[f"flash_vs_xla_f32_rel_err_s{s}"] = rel32
+            out[f"flash_vs_xla_rel_err_s{s}"] = rel
+            out[f"flash_vs_f32_rel_err_s{s}"] = rel_truth
+            out[f"flash_vs_xla_argmax_s{s}"] = agree
+            if not (rel32 < F32_LM_RTOL and rel_truth < limit
+                    and agree >= LM_BATCH - 1):
+                fail(f"{cfg.name} prefill S={s}: flash differs from xla")
+
+    if "ssm_scan" in per_call:
+        out.update(scan_witness(params, params32, cfg, cfg32, tokens, truth,
+                                logits, rel_of))
 
     # the 128 tokens fed one by one, timed as one window: wall over the
     # steps, the card synchronized at each end only
     s = LM_SEQS[-1]
-    cache = MD.init_cache(cfg, LM_BATCH, s, device=dev)
     pos = [torch.full((LM_BATCH,), j, device=dev) for j in range(s)]
+
+    def decode_all(p, c, cache):
+        for j in range(s):
+            last, cache = MD.decode_step(p, c, cache, tokens[s][:, j:j + 1],
+                                         pos[j])
+        return last, cache
+
+    cache = MD.init_cache(cfg, LM_BATCH, s, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for j in range(s):
-        last, cache = MD.decode_step(params, cfg, cache,
-                                     tokens[s][:, j:j + 1], pos[j])
+    last, cache = decode_all(params, cfg, cache)
     torch.cuda.synchronize()
     window = time.perf_counter() - t0
-    rel = float((last - logits[s]).abs().max() / logits[s].abs().max())
-    agree = float((last.argmax(-1) == logits[s].argmax(-1)).float().mean())
     step_ms = 1e3 * window / s
-    print(f"  decode x{s} vs flash prefill S={s}: last logits rel err "
-          f"{rel:.3e} (< {LM_RTOL}), argmax agreement {agree:.2f} (>= "
-          f"0.5); {s} steps in {window:.3f}s wall: {step_ms:.3f} ms a "
-          f"step, {LM_BATCH * s / window:.1f} tokens/s", flush=True)
+    # the same in float32 compute with a float32 cache, where the recurrence
+    # is exact but for rounding
+    last32, _ = decode_all(params32, cfg32, MD.init_cache(
+        cfg32, LM_BATCH, s, dtype=torch.float32, device=dev))
+    del params32
+    torch.cuda.empty_cache()
+    rel32 = rel_of(last32, truth[s])
+    rel = rel_of(last, logits[s])
+    rel_truth = rel_of(last, truth[s])
+    limit = LM_BF16_CAPS[cfg.family]
+    agree = float((last.argmax(-1) == logits[s].argmax(-1)).float().mean())
+    print(f"  decode x{s} vs prefill S={s}: float32 rel err {rel32:.3e} "
+          f"(< {F32_LM_RTOL}); bf16 rel err {rel:.3e}, to the float32 "
+          f"prefill {rel_truth:.3e} (< {limit:.3e}), argmax agreement "
+          f"{agree:.2f} (>= 0.5); {s} bf16 steps in {window:.3f}s wall: "
+          f"{step_ms:.3f} ms a step, {LM_BATCH * s / window:.1f} tokens/s",
+          flush=True)
     out.update(decode_vs_prefill_rel_err=rel, decode_vs_prefill_argmax=agree,
+               decode_vs_prefill_f32_rel_err=rel32,
+               decode_vs_f32_prefill_rel_err=rel_truth,
                decode_step_ms=step_ms,
                decode_tokens_per_s=LM_BATCH * s / window)
-    if not (rel < LM_RTOL and agree >= 0.5):
-        fail("token-by-token decode diverges from the flash prefill")
+    if not (rel32 < F32_LM_RTOL and rel_truth < limit and agree >= 0.5):
+        fail(f"{cfg.name}: token-by-token decode diverges from the prefill")
 
     for s in LM_SEQS:
         ms = wall_ms(lambda s=s: MT.prefill(params, cfg,
@@ -502,23 +720,25 @@ def lm_path(dev, read_launches, reset_launches, kern) -> dict:
     torch.cuda.empty_cache()
 
     reset_launches()
-    argv = ["--full", "--arch", LM_ARCH, "--pool", "4", "--max-len", "256",
+    argv = ["--full", "--arch", arch, "--pool", "4", "--max-len", "256",
             "--requests", "8", "--max-new", "16"]
     print(f"serve {' '.join(argv)}", flush=True)
     summary = LS.main(argv)
     if summary["done"] != 8 or summary["tokens"] != 8 * 16:
-        fail(f"LM serving: {summary}")
-    read_launches("LM serving (decode through the mux)", (), exact={})
+        fail(f"{cfg.name} serving: {summary}")
+    read_launches(f"{cfg.name} serving (decode through the mux)", (),
+                  exact={})
     # greedy decoding depends on the prompt only: each request served
     # again alone, by an engine over the weights this path holds (the
     # launcher's: the same generator and seed), gives the same output
-    engine = DecodeEngine(get_config(LM_ARCH), params, batch=4, max_len=256,
+    engine = DecodeEngine(get_config(arch), params, batch=4, max_len=256,
                           eos_id=-1)
     solo = [LS.serve(engine, [p], 16)[0].out for p in summary["prompts"]]
     print(f"  greedy outputs solo == co-batched: "
           f"{solo == summary['outputs']}", flush=True)
     if solo != summary["outputs"]:
-        fail("LM serving: a greedy output changed with its pool-mates")
+        fail(f"{cfg.name} serving: a greedy output changed with its "
+             f"pool-mates")
     out.update(serve_tokens_per_s=summary["tokens_per_s"],
                serve_step_ms=summary["step_ms"],
                serve_step_ms_p50=summary["step_ms_p50"],
@@ -562,6 +782,7 @@ def main():
     KT = importlib.import_module("repro_torch.kernels.trisolve")
     KG = importlib.import_module("repro_torch.kernels.gemm")
     KA = importlib.import_module("repro_torch.kernels.attention")
+    KS = importlib.import_module("repro_torch.kernels.ssm_scan")
     from repro_torch.kernels.common import sample_spd
     from repro_torch.kernels.svd import spectrum_recon
 
@@ -601,7 +822,10 @@ def main():
              "ops_gemm": lambda x, y: K.gemm(x, y, device=x.device),
              "flash_attention": KA.flash_attention_fused,
              "flash_attention_full": lambda q, k, v:
-                 KA.flash_attention_fused(q, k, v, causal=False)}
+                 KA.flash_attention_fused(q, k, v, causal=False),
+             "ssm_scan": KS.ssm_scan_fused,
+             "ops_ssm_scan": lambda x, a, b, c, chunk: K.ssm_scan(
+                 x, a, b, c, chunk=chunk, device=x.device)}
     plain = {"cholesky_solve": pp.cholesky_solve_plain,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_plain,
              "qr_solve_blocked": pp.qr_solve_blocked_plain,
@@ -626,7 +850,15 @@ def main():
              "gemm": KG.gemm_plain, "ops_gemm": KG.gemm_plain,
              "flash_attention": KA.flash_attention_plain,
              "flash_attention_full": lambda q, k, v:
-                 KA.flash_attention_plain(q, k, v, causal=False)}
+                 KA.flash_attention_plain(q, k, v, causal=False),
+             "ssm_scan": KS.ssm_scan_plain,
+             # on ops' (B, S, H, ...) layout, moved to the kernel's and back
+             "ops_ssm_scan": lambda x, a, b, c, chunk: (lambda y, h: (
+                 y.transpose(1, 2), h))(*KS.ssm_scan_plain(
+                     x.transpose(1, 2), a.transpose(1, 2),
+                     b.transpose(1, 2) if b.dim() == 4 else b,
+                     c.transpose(1, 2) if c.dim() == 4 else c,
+                     chunk=chunk))}
     oracle = {"cholesky_solve": ref.cholesky_solve,
               "cholesky_solve_blocked": ref.cholesky_solve,
               "qr_solve_blocked": ref.qr_solve,
@@ -649,7 +881,15 @@ def main():
               "gemm": ref.gemm, "ops_gemm": ref.gemm,
               "flash_attention": ref.mha,
               "flash_attention_full": lambda q, k, v:
-                  ref.mha(q, k, v, causal=False)}
+                  ref.mha(q, k, v, causal=False),
+              # the sequential oracle in the (B, S, H, ...) layout, its
+              # answers moved back to the kernel's
+              "ssm_scan": lambda x, a, b, c: (lambda y, h: (
+                  y.transpose(1, 2), h))(*ref.ssm_scan(
+                      x.transpose(1, 2), a.transpose(1, 2),
+                      b.transpose(1, 2) if b.dim() == 4 else b,
+                      c.transpose(1, 2) if c.dim() == 4 else c)),
+              "ops_ssm_scan": ref.ssm_scan}
     if set(kern) != {KERNEL_OF.get(key, key) for key in fused}:
         fail(f"kernel set {sorted(kern)} != {sorted(fused)}")
     max_err = {name: 0.0 for name in kern}
@@ -1129,10 +1369,62 @@ def main():
                            f"D={d} S={s}")
     attn_check(attn_case(LM_BATCH, 24, 8, LM_SEQS[0], 128, torch.bfloat16),
                f"B={LM_BATCH} 24/8 S=512", keys=("flash_attention",))
+    attn_check(attn_case(LM_BATCH, 32, 32, LM_SEQS[0], 80, torch.bfloat16),
+               f"B={LM_BATCH} 32/32 S=512 D=80", keys=("flash_attention",))
+
+    print("K21 (chunked SSD scan):", flush=True)
+
+    def ssm_case(b, h, s, p, n, per_head, decays):
+        """Kernel-layout inputs made on the card: x standard normal,
+        decays uniform over ``decays``, B/C normal of variance 1 / N."""
+        bc = (b, h, s, n) if per_head else (b, s, n)
+        a = torch.rand((b, h, s), generator=gen, device=dev)
+        return (grand(b, h, s, p), decays[0] + (decays[1] - decays[0]) * a,
+                grand(*bc) / math.sqrt(n), grand(*bc) / math.sqrt(n))
+
+    for label, b, h, s, p, n, per_head, chunk, decays in SSM_CASES:
+        args = ssm_case(b, h, s, p, n, per_head, decays)
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            check("ssm_scan", tuple(t.to(dtype) for t in args),
+                  f"{label} ({b},{h},{s},{p}) N={n} "
+                  f"{'bf16' if bf16 else 'f32'}",
+                  oracle_args=tuple(t.to(dtype).float() for t in args),
+                  rtol=SSM_BF16_RTOL if bf16 else None, chunk=chunk)
+        del args
+    # the models' route: ops.ssm_scan on its (B, S, H, P) layout with shared
+    # or per-head B/C, which the kernel reads through strides (x's sequence
+    # axis strided over the heads, a head stride of 0 for shared B/C), held
+    # like the kernel-layout cases above
+    for label, b, h, s, p, n, per_head, chunk, decays in SSM_CASES[1:3]:
+        x, a, bb, cc = ssm_case(b, h, s, p, n, per_head, decays)
+        move = lambda t: t.transpose(1, 2).contiguous()
+        args = (move(x), move(a), *((move(bb), move(cc)) if per_head
+                                    else (bb, cc)))
+        del x, a, bb, cc
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            check("ops_ssm_scan", tuple(t.to(dtype) for t in args),
+                  f"{label} ({b},{s},{h},{p}) N={n} "
+                  f"{'bf16' if bf16 else 'f32'}",
+                  oracle_args=tuple(t.to(dtype).float() for t in args),
+                  rtol=SSM_BF16_RTOL if bf16 else None, chunk=chunk)
+        del args
     for label, call in (
             ("flash_attention S=200 (not a multiple of 128)",
              lambda: KA.flash_attention_fused(
                  *(torch.ones((1, 2, 200, 64), device=dev),) * 3)),
+            ("ssm_scan S=100 (not a multiple of its chunk 64)",
+             lambda: KS.ssm_scan_fused(
+                 *ssm_case(1, 2, 100, 4, 8, False, (0.8, 0.99)), chunk=64)),
+            ("ssm_scan chunk 256 (past the kernel's 128)",
+             lambda: KS.ssm_scan_fused(
+                 *ssm_case(1, 2, 512, 4, 8, False, (0.8, 0.99)),
+                 chunk=256)),
+            ("ssm_scan N=160 at chunk 128 (past shared memory)",
+             lambda: KS.ssm_scan_fused(
+                 *ssm_case(1, 2, 128, 4, 160, False, (0.8, 0.99)),
+                 chunk=128)),
             ("gemm K mismatch (4x5 @ 6x3)",
              lambda: KG.gemm_fused(torch.ones((4, 5), device=dev),
                                    torch.ones((6, 3), device=dev))),
@@ -1380,7 +1672,7 @@ def main():
         times = [timed_call(fn) for _ in range(reps)]
         return statistics.median(times), max(times), reps
 
-    def work(key, shapes):
+    def work(key, shapes, chunk=None):
         """(bytes, FLOPs) one call must move and do at these per-lane
         shapes (per row for the FFT): each input read once, each output
         written once; the least float32 work, an FMA counted as two, a
@@ -1389,6 +1681,17 @@ def main():
         cost model, not bound it).  A blocked kernel computes its base
         kernel's function, so it has the same least work."""
         key = key.removesuffix("_blocked").removesuffix("_tiled")
+        if key == "ssm_scan":                  # whole shapes, float32: x, a,
+            (b, h, s, p), _, bc = shapes[:3]   # B, C read, y and h written;
+            n = bc[-1]                         # per (b, h, chunk) M x, C h
+            cs = min(chunk, s)                 # and the update, and the
+            gram = b * (s // cs) * cs * (cs + 1) * n   # triangle of C B^T
+            if len(bc) == 4:                   # per (b, chunk) where B, C
+                gram *= h                      # are shared, per head not
+            return (4 * (2 * b * h * s * p + b * h * s
+                         + 2 * math.prod(bc) + b * h * n * p),
+                    gram + b * h * (s // cs) * (cs * (cs + 1) * p
+                                                + 4 * cs * n * p))
         if key == "gemm":                      # whole shapes, float32
             (m, kk), (_, n) = shapes
             return 4 * (m * kk + kk * n + m * n), 2 * m * n * kk
@@ -1502,8 +1805,9 @@ def main():
                                                       args[1][None, None])
         return None
 
-    # ---- 4b. the LM serving path at full width (timed here) ----
-    lm = lm_path(dev, read_launches, reset_launches, kern)
+    # ---- 4b. the LM serving paths at full width (timed here) ----
+    lm = {arch: lm_path(arch, dev, read_launches, reset_launches, kern)
+          for arch in LM_ARCHS}
 
     # the timed call of each kernel: its main-path entry point, returning
     # what the main path gets (not the spectrum/reconstruction view)
@@ -1547,6 +1851,13 @@ def main():
                            grand(m, kk).to(dt), grand(kk, n).to(dt)),
                        "gemm")
                       for m, kk, n, dt in GEMM_TIMES]
+        if name == "ssm_scan":             # whole shapes: lanes = 1
+            cases += [(f"{label} ({b},{h},{s},{p}) N={n} bf16", None, None,
+                       1, lambda b=b, h=h, s=s, p=p, n=n, ph=ph: tuple(
+                           t.bfloat16() for t in ssm_case(
+                               b, h, s, p, n, ph, (0.8, 0.999))),
+                       "ssm_scan", chunk)
+                      for label, b, h, s, p, n, ph, chunk in SSM_TIMES]
         if name == "flash_attention":
             cases += [(f"B={b} {h}/{hkv} S={s} D={d} {dt}", None, None,
                        1,
@@ -1557,25 +1868,28 @@ def main():
                        "flash_attention")
                       for b, h, hkv, s, d, dt in FLASH_TIMES]
         sweep = []
-        for label, n, form, lanes, make, tkey in cases:
+        for label, n, form, lanes, make, tkey, *chunk in cases:
             args = make()
+            kw = {"chunk": chunk[0]} if chunk else {}   # K21's chunk
             tk, tp_ = calls.get(tkey, (fused[tkey], plain[tkey]))
             shapes = tuple(tuple(a.shape if lanes == 1 else a.shape[1:])
                            for a in args)
-            lane_bytes, lane_flops = work(tkey, shapes)
+            lane_bytes, lane_flops = work(tkey, shapes, **kw)
             nbytes, flops = lanes * lane_bytes, lanes * lane_flops
             peak = PEAK_F32_FLOPS
             if args[0].dtype == torch.bfloat16:   # 2 bytes, tensor cores
-                nbytes, peak = nbytes // 2, PEAK_BF16_FLOPS
+                nbytes //= 2                      # (K21 computes in f32)
+                if tkey != "ssm_scan":
+                    peak = PEAK_BF16_FLOPS
             t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
             t_ops = flops / peak * 1e3
             before = k.launches_global
-            ms, ms_max, reps = time_ms(lambda: tk(*args), 30)
+            ms, ms_max, reps = time_ms(lambda: tk(*args, **kw), 30)
             if (form == "global") != (k.launches_global > before):
                 fail(f"{name} {label}: ran the wrong form")
             large = n is not None and n >= MID_SIZES[0]
             plain_ms, _, plain_reps = time_ms(
-                lambda: tp_(*args), 1 if name == "svd" or large else 3)
+                lambda: tp_(*args, **kw), 1 if name == "svd" or large else 3)
             lib = library(tkey, args)
             lib_ms, _, lib_reps = time_ms(lib, 10) if lib else (None, 0, 0)
             sweep.append({

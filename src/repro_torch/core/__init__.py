@@ -21,6 +21,7 @@ from repro_torch.core.dependence import (  # noqa: F401
     Region,
     OrderedDep,
     RegionGraph,
+    fuse_scan,
 )
 from repro_torch.core.criticality import (  # noqa: F401
     RegionCost,

@@ -55,10 +55,12 @@ from repro_torch.kernels.ops import (  # noqa: F401
     fir,
     fft,
     flash_attention,
+    ssm_scan,
 )
 
 __all__ = ["cholesky", "trisolve", "qr", "svd", "gemm", "fir", "fft",
-           "flash_attention", "KernelSpec", "Variant", "Coalescer",
+           "flash_attention", "ssm_scan", "KernelSpec", "Variant",
+           "Coalescer",
            "register", "get", "names", "specs", "StageSpec", "DagSpec",
            "register_dag", "get_dag", "dag_names", "dag_specs",
            "DecodeSpec", "register_decode", "get_decode", "decode_names"]
@@ -470,6 +472,7 @@ def _register_all() -> None:
     from repro_torch.kernels.fir import fir_fused
     from repro_torch.kernels.gemm import gemm_fused
     from repro_torch.kernels.qr import qr_fused
+    from repro_torch.kernels.ssm_scan import ssm_scan_fused
     from repro_torch.kernels.svd import spectrum_recon, svd_fused
     from repro_torch.kernels.trisolve import trisolve_fused
 
@@ -565,6 +568,26 @@ def _register_all() -> None:
         stream=lambda n: inductive(outer_trip=n, inner_base=1,
                                    inner_stretch=1),
         sizes=(128,), rtol=1e-3, kind="kernel"))
+
+    def _ssm_case(rng, n):
+        b, h, nn, p = 1, 2, 8, 4
+        return (_tensor(rng.standard_normal((b, h, n, p))
+                        .astype(np.float32)),
+                _tensor(rng.uniform(0.8, 0.999, (b, h, n))
+                        .astype(np.float32)),
+                _tensor(rng.standard_normal((b, n, nn)).astype(np.float32)),
+                _tensor(rng.standard_normal((b, n, nn)).astype(np.float32)))
+
+    def _ssm_oracle(x, a, b, c):
+        y, hf = ref.ssm_scan(x.transpose(1, 2), a.transpose(1, 2), b, c)
+        return y.transpose(1, 2), hf
+
+    register(KernelSpec(
+        name="ssm_scan", kernel=ssm_scan_fused,
+        run_kernel=lambda x, a, b, c: ssm_scan_fused(x, a, b, c, chunk=16),
+        run_oracle=_ssm_oracle, make_case=_ssm_case,
+        stream=lambda n: rect(n // 16, 16), sizes=(64,), rtol=1e-3,
+        kind="kernel"))
 
     # ---------------- token decode (continuous batching) ----------------
     register_decode(DecodeSpec(

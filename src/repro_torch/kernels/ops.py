@@ -1,7 +1,7 @@
 """The public primitive API: one hand-written kernel per call.
 
-Each function takes float32 arrays or tensors (``gemm`` and
-``flash_attention`` bfloat16 too) and ``device`` (default
+Each function takes float32 arrays or tensors (``gemm``,
+``flash_attention`` and ``ssm_scan`` bfloat16 too) and ``device`` (default
 ``cuda``; ``"cpu"`` runs the kernel's plain PyTorch version) and goes
 through the kernel's wrapper (``*_fused``), which launches the kernel on
 a CUDA tensor and takes the plain version on a CPU one:
@@ -14,11 +14,11 @@ a CUDA tensor and takes the plain version on a CPU one:
   fft       K7  — radix-2 DFT              (``kernels/fft.py``)
   svd       K8  — one-sided Jacobi, sorted (``kernels/svd.py``)
   flash_attention  K20 — causal GQA attention (``kernels/attention.py``)
+  ssm_scan  K21 — chunked SSD/Mamba2 scan  (``kernels/ssm_scan.py``)
 
 The reference's ``backend="xla"`` paths are the library oracles of
 ``repro_torch.kernels.ref``, which a caller that wants one calls by name;
-no switch here sends a CUDA tensor to a plain version.  ``ssm_scan``
-comes with its kernel's slice.
+no switch here sends a CUDA tensor to a plain version.
 """
 from __future__ import annotations
 
@@ -31,11 +31,12 @@ from repro_torch.kernels.fft import fft_fused
 from repro_torch.kernels.fir import fir_fused
 from repro_torch.kernels.gemm import gemm_fused
 from repro_torch.kernels.qr import qr_fused
+from repro_torch.kernels.ssm_scan import ssm_scan_fused
 from repro_torch.kernels.svd import svd_fused
 from repro_torch.kernels.trisolve import trisolve_fused
 
 __all__ = ["cholesky", "trisolve", "qr", "svd", "gemm", "fir", "fft",
-           "flash_attention"]
+           "flash_attention", "ssm_scan"]
 
 
 def _on(device, *arrays) -> list[torch.Tensor]:
@@ -120,3 +121,23 @@ def flash_attention(q, k, v, *, causal: bool = True,
     causal needs square attention, and S must divide by min(128, S)."""
     return flash_attention_fused(*_on(device, q, k, v), causal=causal,
                                  scale=scale, bq=bq, bkv=bkv)
+
+
+def ssm_scan(x, a, b, c, *, chunk: int = 128, device=None):
+    """x: (B, S, H, P), a: (B, S, H), b/c: (B, S, N) shared across heads or
+    (B, S, H, N) per head -> y (B, S, H, P), h (B, H, N, P), both in x's
+    dtype; S must divide by min(chunk, S).  The kernel reads this layout
+    through strides: the reference's moves of the sequence axis are views
+    here, not copies."""
+    dev = resolve_device(device)
+    x, a, b, c = (torch.as_tensor(t, device=dev) for t in (x, a, b, c))
+    if x.dim() != 4 or a.dim() != 3 or b.dim() not in (3, 4):
+        raise ValueError(f"ssm_scan: expected x (B, S, H, P), a (B, S, H) "
+                         f"and b/c (B, S, N) or (B, S, H, N), got "
+                         f"{tuple(x.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if b.dim() == 4:
+        b, c = b.transpose(1, 2), c.transpose(1, 2)
+    y, hf = ssm_scan_fused(x.transpose(1, 2), a.transpose(1, 2), b, c,
+                           chunk=chunk)
+    return y.transpose(1, 2), hf

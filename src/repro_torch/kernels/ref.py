@@ -191,3 +191,30 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = torch.where(ki <= qi, logits, -1e30)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)
+
+
+def ssm_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, h0: torch.Tensor | None = None):
+    """Naive sequential SSD/Mamba2 recurrence (the oracle).
+
+    x: (B, S, H, P); a: (B, S, H) decays in (0, 1]; b/c: (B, S, N) shared
+    across heads or (B, S, H, N) per head; h0: (B, H, N, P) initial state
+    (zero by default).  Returns y (B, S, H, P) and the final state
+    (B, H, N, P): h = a_t h + b_t x_t^T, y_t = c_t h, step by step."""
+    bs, s, hh, p = x.shape
+    n = b.shape[-1]
+    per_head = b.dim() == 4
+    h = torch.zeros((bs, hh, n, p), dtype=x.dtype, device=x.device) \
+        if h0 is None else h0
+    ys = []
+    for t in range(s):
+        xt, at, bt, ct = x[:, t], a[:, t], b[:, t], c[:, t]
+        if per_head:
+            h = at[:, :, None, None] * h \
+                + torch.einsum("bhn,bhp->bhnp", bt, xt)
+            ys.append(torch.einsum("bhn,bhnp->bhp", ct, h))
+        else:
+            h = at[:, :, None, None] * h \
+                + torch.einsum("bn,bhp->bhnp", bt, xt)
+            ys.append(torch.einsum("bn,bhnp->bhp", ct, h))
+    return torch.stack(ys, dim=1), h

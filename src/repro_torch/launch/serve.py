@@ -6,8 +6,9 @@ SolverMux, serving a batch of greedy requests on one device.
         --pool 4 --max-len 256 --requests 8 --max-new 16
 
 The model is ``--arch``'s smoke config (default) or, with ``--full``, its
-full published width, with random weights from a generator seeded 0 on
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
+full published width — a dense model (phi4-mini-3.8b, the default), the
+hybrid zamba2-2.7b or xlstm-125m — with random weights from a generator
+seeded 0 on ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
 Prompts are ``--requests`` seed-keyed token lists whose lengths spread
 evenly over 3..40 tokens (chat-length prompts).  The run prints
 requests, tokens, tokens/s and the step time (the serving window over

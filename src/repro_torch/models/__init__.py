@@ -1,6 +1,7 @@
 """The LM side of the port: configuration dataclasses (``config``), layer
 primitives (``layers``), the feed-forward and attention blocks (``mlp``,
-``attention``), model assembly and prefill (``transformer``) and the
-single-token decode step (``decode``).  This slice carries the dense
-family; the hybrid, xLSTM, MoE, audio and VLM families raise naming the
+``attention``), the Mamba2 block (``ssm``) and the mLSTM / sLSTM blocks
+(``xlstm``), model assembly and prefill (``transformer``) and the
+single-token decode step (``decode``).  The dense, hybrid (zamba2) and
+xLSTM families run; the MoE, audio and VLM families raise naming the
 slice that brings them."""

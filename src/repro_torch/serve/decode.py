@@ -15,7 +15,12 @@ Slot-level paged KV reuse: :func:`repro_torch.models.attention.
 attention_decode` masks each slot's attention to its live length
 ``pos + 1``, so a freed slot is reused by resetting its position to 0 —
 the new request's tokens overwrite the slot's cache pages sequentially
-and the stale tail beyond the live position is never read.
+and the stale tail beyond the live position is never read.  A recurrent
+state (Mamba2, mLSTM, sLSTM) has no such mask, and a slot's state moves
+at every pool step, idle or not; so every slot handed to a request is
+first given a fresh slot's state (:func:`repro_torch.models.decode.
+reset_slots`, nothing for the dense family).  The reference's engine
+does not, and a reused slot there carries its last request's state.
 
 Selection is per slot: a greedy request takes the argmax and never draws
 a random number, so its output is independent of its pool-mates; a
@@ -170,9 +175,11 @@ class DecodeEngine(FifoEngineCore):
         """Fill free slots oldest-first from the FIFO.  Slot reuse is
         the paged-cache move: position resets to 0 and the incoming
         request's tokens overwrite the slot's pages sequentially — the
-        stale tail past the live position is masked by construction, so
-        no cache zeroing happens here."""
+        stale tail past the live position is masked by construction.
+        The recurrent states of the slots filled are reset to a fresh
+        slot's (no K/V zeroing happens here)."""
         now = self.clock()
+        filled = []
         for i in range(self.lanes):
             while self._slot_req[i] is None and self.pending():
                 r = self.take(1)[0]
@@ -193,6 +200,8 @@ class DecodeEngine(FifoEngineCore):
                 self._slot_fed[i] = 0
                 self._slot_wall0[i] = self.wall()
                 self._slot_gen0[i] = self._slot_wall0[i]
+                filled.append(i)
+        D.reset_slots(self.cfg, self.cache, filled)
 
     def _forward(self, toks: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """One decode step over the pool: logits (lanes, V) float32."""

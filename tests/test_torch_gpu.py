@@ -1,11 +1,13 @@
-"""The hand-written Hopper kernels (K1-K20) on the card, held against
+"""The hand-written Hopper kernels (K1-K21) on the card, held against
 their plain PyTorch versions on the same card inputs, K1-K4 and K15-K17
 on lanes past shared memory (their global form), the tiled K12-K14 with
 slabs streamed past shared memory, the served DAGs' golden replay, the
 launch counts of the unfused baselines and the DSP chain, K17 on a wide
 matrix and K1 on bf16, K18 and K20 at their registry cases and the LM
 shapes, the smoke model's prefill on K20 and the decode golden replay on
-the card.
+the card; K21 at its registry case and at zamba2-2.7b's and xlstm-125m's
+prefill shapes, and the hybrid and xLSTM smoke prefills with their exact
+K21 and K20 launch counts.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
@@ -810,18 +812,19 @@ def test_gemm_registry_cases_and_guard_on_card(hopper):
 ATTN_RTOLS = {"float32": 1e-4, "bfloat16": 5e-3}
 
 
-@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("d", [8, 64, 80, 128])
 @pytest.mark.parametrize("s", [96, 128, 512])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_version(hopper, d, s, causal, dtype):
-    """K20 at phi4-mini's head width (128), the registry's (64) and the
-    smoke configs' (8), at S = 96, 128 and 512, causal and not, GQA 4/2,
-    against its plain version on the same card inputs.  The scores are
-    peaked (q and k at sigma 1.5, so each row's max moves from kv tile
-    to kv tile) and a score of ~18 is planted in the last kv tile (q
-    with a common component 3 / sqrt(D), the key at s - 1 - s // 16 all
-    6), where the running max jumps and all before must be rescaled."""
+    """K20 at phi4-mini's head width (128), zamba2's (80), the registry's
+    (64) and the smoke configs' (8), at S = 96, 128 and 512, causal and
+    not, GQA 4/2, against its plain version on the same card inputs.
+    The scores are peaked (q and k at sigma 1.5, so each row's max moves
+    from kv tile to kv tile) and a score of ~18 is planted in the last kv
+    tile (q with a common component 3 / sqrt(D), the key at s - 1 - s //
+    16 all 6), where the running max jumps and all before must be
+    rescaled."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(d + s)
     q = rng.standard_normal((1, 4, s, d)) * 1.5 + 3.0 / np.sqrt(d)
@@ -892,3 +895,144 @@ def test_decode_golden_replay_on_card(hopper):
     assert all(j.state == "done" for j in jobs)
     got = json.dumps(mux.drain_events(), indent=1) + "\n"
     assert got == (data / "decode_golden.json").read_text()
+
+
+# ---------------- K21, the chunked SSD scan ----------------
+
+tscan = importlib.import_module("repro_torch.kernels.ssm_scan")
+# K21 against its plain version on the same card inputs: float32 sums in
+# another order only (1e-4 of the largest answer, as the solver specs);
+# bfloat16 rounds each answer once from float32 in both, so two answers may
+# sit one bf16 step (2^-8 of themselves) apart: 8e-3.  Against the float32
+# sequential oracle: the spec's 1e-3, and 8e-3 in bf16.
+SSM_RTOLS = {"float32": (1e-4, 1e-3), "bfloat16": (8e-3, 8e-3)}
+# (label, b, h, s, p, n, per_head, chunk, decays): the registry's shapes,
+# zamba2-2.7b's prefill (N = 64 shared, chunk 128), xlstm-125m's (P = 385
+# with the normaliser channel, N = 192 per head, chunk 64), S < chunk, an
+# odd P and the decay limits 1 and 0 (the 1e-20 clamp)
+SSM_CASES = [("registry", 1, 2, 64, 4, 8, False, 16, (0.8, 0.999)),
+             ("zamba2", 4, 32, 512, 160, 64, False, 128, (0.8, 0.999)),
+             ("xlstm", 4, 4, 512, 385, 192, True, 64, (0.8, 0.999)),
+             ("S<chunk", 2, 3, 48, 9, 16, True, 128, (0.8, 0.999)),
+             ("decay 1", 1, 2, 256, 33, 8, False, 64, (1.0, 1.0)),
+             ("decay 0", 1, 2, 256, 33, 8, False, 64, (0.0, 0.0))]
+
+
+def _ssm_case(dev, b, h, s, p, n, per_head, decays, seed=0):
+    """Kernel-layout inputs on ``dev``: x standard normal, decays uniform
+    over ``decays``, b/c normal of variance 1 / N."""
+    rng = np.random.default_rng(seed)
+    bc = (b, h, s, n) if per_head else (b, s, n)
+    arrays = (rng.standard_normal((b, h, s, p)),
+              rng.uniform(*decays, (b, h, s)),
+              rng.standard_normal(bc) / np.sqrt(n),
+              rng.standard_normal(bc) / np.sqrt(n))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("label,b,h,s,p,n,per_head,chunk,decays", SSM_CASES,
+                         ids=[c[0] for c in SSM_CASES])
+def test_ssm_kernel_matches_plain_version_and_oracle(
+        hopper, label, b, h, s, p, n, per_head, chunk, decays, dtype):
+    from repro_torch.kernels import ref as tref
+    args = [t.to(getattr(torch, dtype))
+            for t in _ssm_case(hopper, b, h, s, p, n, per_head, decays)]
+    before = _launches("ssm_scan")
+    got = tscan.ssm_scan_fused(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _launches("ssm_scan") == before + 1
+    rtol, rtol_o = SSM_RTOLS[dtype]
+    want = tscan.ssm_scan_plain(*args, chunk=chunk)
+    for g, w, name in zip(got, want, ("y", "h")):
+        assert g.dtype == args[0].dtype
+        assert_close(g.float().cpu().numpy(), w.float().cpu().numpy(),
+                     rtol=rtol, name=f"{label} {name} vs plain")
+    x, a, bb, cc = (t.float() for t in args)
+    mv = lambda t: t.transpose(1, 2) if t.dim() == 4 else t
+    oy, oh = tref.ssm_scan(mv(x), a.transpose(1, 2), mv(bb), mv(cc))
+    assert_close(got[0].float().transpose(1, 2).cpu().numpy(),
+                 oy.cpu().numpy(), rtol=rtol_o, name=f"{label} y vs oracle")
+    assert_close(got[1].float().cpu().numpy(), oh.cpu().numpy(),
+                 rtol=rtol_o, name=f"{label} h vs oracle")
+
+
+@pytest.mark.parametrize("dtype,b,h,s,p,n,per_head,chunk", [
+    ("float32", 2, 4, 128, 40, 16, False, 64),
+    ("bfloat16", 4, 32, 512, 160, 64, False, 128),      # zamba2-2.7b's
+    ("bfloat16", 4, 4, 512, 385, 192, True, 64)],       # xlstm-125m's
+    ids=["small", "zamba2", "xlstm"])
+def test_ssm_kernel_reads_views_and_ops_layout(hopper, dtype, b, h, s, p, n,
+                                               per_head, chunk):
+    """ops.ssm_scan's (B, S, H, P) inputs reach the kernel as strided
+    views, shared B/C with a head stride of 0: the answers equal the
+    kernel's on contiguous (B, H, S, P) copies bit for bit."""
+    x, a, bb, cc = (t.to(getattr(torch, dtype)) for t in _ssm_case(
+        hopper, b, h, s, p, n, per_head, (0.8, 0.99)))
+    mv = lambda t: t.transpose(1, 2).contiguous()
+    y, hf = TK.ssm_scan(mv(x), mv(a), *((mv(bb), mv(cc)) if per_head
+                                        else (bb, cc)),
+                        chunk=chunk, device=hopper)
+    want_y, want_h = tscan.ssm_scan_fused(x, a, bb, cc, chunk=chunk)
+    assert torch.equal(y.transpose(1, 2), want_y)
+    assert torch.equal(hf, want_h)
+
+
+def test_ssm_registry_case_and_guards_on_card(hopper):
+    spec = TK.get("ssm_scan")
+    args = [t.to(hopper) for t in spec.make_case(np.random.default_rng(0),
+                                                 spec.sizes[0])]
+    for g, w in zip(spec.run_kernel(*args), spec.run_oracle(*args)):
+        assert_close(g.cpu().numpy(), w.cpu().numpy(), rtol=spec.rtol,
+                     name="ssm registry case")
+    x, a, bb, cc = _ssm_case(hopper, 1, 2, 100, 4, 8, False, (0.8, 0.99))
+    with pytest.raises(ValueError):              # 100 % 64 != 0
+        tscan.ssm_scan_fused(x, a, bb, cc, chunk=64)
+    x, a, bb, cc = _ssm_case(hopper, 1, 2, 512, 4, 8, False, (0.8, 0.99))
+    with pytest.raises(ValueError):              # chunk 256 > 128
+        tscan.ssm_scan_fused(x, a, bb, cc, chunk=256)
+    # shared memory: 20736 + 290 N floats at chunk 128 fit 227 KB up to
+    # N = 128; at chunk 64 every N up to 256 fits
+    assert tscan.kernel_fits(128, 128) and not tscan.kernel_fits(128, 129)
+    assert tscan.kernel_fits(64, 256) and not tscan.kernel_fits(64, 257)
+    x, a, bb, cc = _ssm_case(hopper, 1, 2, 128, 4, 160, False, (0.8, 0.99))
+    with pytest.raises(ValueError):              # N 160 past shared memory
+        tscan.ssm_scan_fused(x, a, bb, cc, chunk=128)
+
+
+def _to_device(tree, dev):
+    """A parameter tree's tensors copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch,k21,k20", [("zamba2-2.7b", 4, 2),
+                                          ("xlstm-125m", 3, 0)])
+def test_hybrid_and_xlstm_prefill_launch_counts(hopper, arch, k21, k20):
+    """The smoke models' prefill on the card (f32 compute, attention by
+    K20): K21 once a Mamba2 or mLSTM layer, K20 once an application of
+    the shared block, and the logits of the plain versions on the CPU on
+    the same weights (1e-3: the two scans and attentions sum in other
+    orders)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tT
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32",
+                              attn_impl="flash")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    p = tT.init_params(gen, cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)))
+    before = (_launches("ssm_scan"), _launches("flash_attention"))
+    got = tT.prefill(_to_device(p, hopper), cfg,
+                     {"tokens": toks.to(hopper)})
+    torch.cuda.synchronize()
+    assert (_launches("ssm_scan") - before[0],
+            _launches("flash_attention") - before[1]) == (k21, k20)
+    want = tT.prefill(p, cfg, {"tokens": toks})
+    assert_close(got.cpu().numpy(), want.numpy(), rtol=1e-3,
+                 name=f"{arch} prefill card vs cpu")

@@ -142,8 +142,7 @@ def test_cast_params_gives_the_values_of_each_use_cast():
     assert c["layers"][1]["ln1"] is p["layers"][1]["ln1"]     # f32 kept
 
 
-@pytest.mark.parametrize("family_arch", ["zamba2-2.7b", "xlstm-125m",
-                                         "dbrx-132b",
+@pytest.mark.parametrize("family_arch", ["dbrx-132b",
                                          "seamless-m4t-large-v2",
                                          "internvl2-76b"])
 def test_later_families_raise_naming_their_slice(family_arch):

@@ -18,7 +18,7 @@ SPECS = ["cholesky_solve", "qr_solve", "mmse_equalize"]
 # the kernel specs (the primitives and the DAGs' kernels) and the DAG
 # stages, beside the three pipelines
 DAG_SPECS = ["cholesky", "trisolve", "qr", "svd", "gemm", "fir", "fft",
-             "flash_attention", "pusch_fft",
+             "flash_attention", "ssm_scan", "pusch_fft",
              "pusch_chanest", "pusch_chain", "svd_factor", "svd_apply"]
 
 

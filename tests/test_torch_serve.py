@@ -130,7 +130,7 @@ def test_mux_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="later slice"):
         SolverMux(lanes=2, mesh_size=2, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        tT.init_params(torch.Generator(), get_smoke("zamba2-2.7b"))
+        tT.init_params(torch.Generator(), get_smoke("dbrx-132b"))
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
