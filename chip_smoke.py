@@ -42,14 +42,20 @@ Phases, each fatal on failure:
                The LM kernels: K18 (GEMM) at the registry's squares and
                through ops.gemm at 1000 x 300 @ 300 x 700, 129 x 257 @
                257 x 65, 1 x 1 and in bf16; K20 (flash attention) at the
-               registry case and at D = 8, 64, 80, 128 by S = 96, 128,
-               512, causal and not, float32 and bf16 (GQA 24/8 at D =
-               128, 4/2 otherwise) and at phi4-mini's prefill shape (4,
-               24, 512, 128), on peaked scores with a large one planted in
-               the last kv tile (``attn_case``), element by element against
-               the plain version and the float32 oracle within what p's
-               rounding allows (``ATTN_RTOLS``), and at
-               zamba2-2.7b's prefill shape (4, 32, 512, 80); K21 (the
+               registry case and at D = 4, 8, 12, 64, 80, 128 by S = 5,
+               96, 100, 128, 512 (ragged q and kv tiles), causal and not,
+               float32 (the SIMT form) and bf16 (the tensor-core form),
+               GQA 24/8 at D = 128, 4/2 otherwise, and at phi4-mini's
+               prefill shape (4, 24, 512, 128), on peaked scores with a
+               large one planted in the last kv tile (``attn_case``),
+               element by element against the plain version and the
+               float32 oracle within what p's rounding allows
+               (``ATTN_RTOLS``), and at zamba2-2.7b's prefill shape (4,
+               32, 512, 80); ``ops.flash_attention`` on the models'
+               (B, S, H, D) tensors as transposed views (read through
+               strides, answered in their layout) at both prefill shapes
+               and a ragged one, float32 and bf16, held the same way and
+               equal bit for bit to the kernel on contiguous copies; K21 (the
                chunked SSD scan) at the registry case, zamba2-2.7b's
                prefill shape (x (4, 32, 512, 160), B/C (4, 512, 64)
                shared, chunk 128), xlstm-125m's (v_aug (4, 4, 512, 385),
@@ -88,10 +94,15 @@ Phases, each fatal on failure:
                float32 weights with one bf16 copy kept: prefill with
                ``attn_impl="flash"`` on 4 prompts of 512 and of 128
                tokens (exactly K20 32 a call for phi4-mini; K21 54 and
-               K20 6 for zamba2; K21 9 for xLSTM), finite logits equal to
-               ``attn_impl="xla"``'s where there is attention, the 128
-               tokens decoded one by one against the prefill (float32
-               and bf16), and ``repro_torch.launch.serve --full`` (8
+               K20 6 for zamba2; K21 9 for xLSTM; every K20 launch of a
+               bf16 prefill in the tensor-core form, none of a float32
+               one), finite logits equal to
+               ``attn_impl="xla"``'s where there is attention, each K20
+               launch of a bf16 prefill held to its plain version on its
+               inputs and the prefill with the plain version in K20's
+               place (``attn_witness``), the 128 tokens decoded one by
+               one against the prefill (float32 and bf16, argmax in
+               both), and ``repro_torch.launch.serve --full`` (8
                requests through a mux of 4 slots, so slots are reused,
                each greedy output the same when served again alone on
                the same weights);
@@ -110,7 +121,8 @@ Phases, each fatal on failure:
                64^2, 128^2, 1000 x 300 x 700 and 4096^3 (bf16 and float32,
                beside torch.matmul with TF32 off); K20 at the registry
                case and phi4-mini's and zamba2's prefill shapes (beside
-               scaled_dot_product_attention with the KV heads repeated);
+               scaled_dot_product_attention with the KV heads repeated,
+               the SM clock printed beside each row);
                K21 at xlstm-125m's and zamba2-2.7b's prefill shapes in
                bf16 (no PyTorch call computes the scan);
                the full-width prefill and decode step as wall time over a
@@ -187,7 +199,8 @@ ORACLE_RTOLS = {"ssm_scan": 1e-3, "ops_ssm_scan": 1e-3,
 KERNEL_OF = {"pusch_fft": "fft", "svd_factor": "svd",
              "trisolve_upper": "trisolve", "ops_gemm": "gemm",
              "ops_ssm_scan": "ssm_scan",
-             "flash_attention_full": "flash_attention"}
+             "flash_attention_full": "flash_attention",
+             "ops_flash_attention": "flash_attention"}
 # (check key, registry spec, variant): the registry cases each kernel is
 # held to
 REGISTRY_CHECKS = (
@@ -284,9 +297,16 @@ LM_BF16_CAPS = {"dense": LM_RTOL, "ssm": 0.25, "hybrid": 0.95}
 # differs by summation order and exp's last bits only.
 ATTN_RTOLS = {"float32": 1e-4, "bfloat16": 5e-3}
 # K20 checks: head widths D (phi4-mini's 128 with its GQA 24/8, zamba2's
-# 80, the registry's 64 and the smoke configs' 8 with GQA 4/2) by S
-FLASH_DIMS = (8, 64, 80, 128)
-FLASH_SEQS = (96, 128, 512)
+# 80, the registry's 64, the smoke configs' 8, and 4 and 12, which are not
+# multiples of 8, with GQA 4/2) by S (5, 96 and 100 not multiples of the
+# tensor-core form's 64-row tiles: ragged q and kv tiles)
+FLASH_DIMS = (4, 8, 12, 64, 80, 128)
+FLASH_SEQS = (5, 96, 100, 128, 512)
+# the strided route (ops.flash_attention on the models' (B, S, H, D)
+# tensors as transposed views): phi4-mini's and zamba2's prefill shapes and
+# a ragged one, (B, H, Hkv, S, D)
+FLASH_STRIDED = ((LM_BATCH, 24, 8, 512, 128), (LM_BATCH, 32, 32, 512, 80),
+                 (2, 4, 2, 100, 12))
 # timing rows, the head row last: K18 at the registry's squares, a shape
 # that is not a multiple of its tile and 4096^3 (bf16, then float32); K20
 # at the registry case and at phi4-mini's prefill shapes
@@ -544,6 +564,58 @@ def scan_witness(params, params32, cfg, cfg32, tokens, truth, logits,
             "decays_at_1_share": max(ones)}
 
 
+def attn_witness(params, cfg, tokens, logits, rel_of) -> dict:
+    """K20 on a model's path held apart from the bf16 stack's drift, at
+    each S of LM_SEQS: every K20 launch of one bf16 prefill against the
+    plain version on the same inputs (the models' strided route),
+    element by element within ATTN_RTOLS["bfloat16"] of softmax(q k^T)
+    |v| + |plain| (a ratio < 1), and the prefill with the plain version in
+    K20's place against K20's, within the family's cap with argmax on >=
+    3 of 4 rows.  Returns the numbers and the plain version's prefills
+    (the decode check asks them).  These launches are not the main
+    path's."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as MT
+    KA = importlib.import_module("repro_torch.kernels.attention")
+    rtol = ATTN_RTOLS["bfloat16"]
+    ratios = []
+
+    def witnessed(q, k, v, **kw):
+        got = KA.flash_attention_fused(q, k, v, **kw)
+        want = KA.flash_attention_plain(q, k, v, **kw).double()
+        scale = KA.flash_attention_plain(q.float(), k.float(),
+                                         v.float().abs(), **kw).double()
+        ratios.append(float(((got.double() - want).abs()
+                             / (rtol * (scale + want.abs()))).max()))
+        return got
+
+    out, subs = {}, {}
+    cap = LM_BF16_CAPS[cfg.family]
+    for s in LM_SEQS:
+        batch = {"tokens": tokens[s]}
+        with patched(ops, "flash_attention_fused", witnessed):
+            MT.prefill(params, cfg, batch)
+        with patched(ops, "flash_attention_fused", KA.flash_attention_plain):
+            subs[s] = MT.prefill(params, cfg, batch)
+        rel = rel_of(logits[s], subs[s])
+        agree = int((logits[s].argmax(-1) == subs[s].argmax(-1)).sum())
+        print(f"  K20 witness S={s}: {len(ratios)} K20 launches of a bf16 "
+              f"prefill vs the plain version on their inputs, worst |diff| "
+              f"/ limit {max(ratios):.3f} (< 1, rtol {rtol}); prefill with "
+              f"the plain version in K20's place: bf16 rel err {rel:.3e} "
+              f"(< {cap}), argmax on {agree}/{LM_BATCH} rows", flush=True)
+        if not (max(ratios) < 1 and rel < cap and agree >= LM_BATCH - 1):
+            fail(f"{cfg.name}: K20 on the model's path differs from its "
+                 f"plain version")
+        out.update({f"attn_witness_ratio_s{s}": max(ratios),
+                    f"attn_sub_rel_err_s{s}": rel,
+                    f"attn_sub_argmax_s{s}": agree})
+        ratios.clear()
+    return out, subs
+
+
 def lm_path(arch, dev, read_launches, reset_launches, kern) -> dict:
     """The LM serving path of ``arch`` at its full published width, on
     the card.
@@ -597,16 +669,31 @@ def lm_path(arch, dev, read_launches, reset_launches, kern) -> dict:
                                device=dev) for s in LM_SEQS}
     out = {"arch": cfg.name, "params": n_params, "batch": LM_BATCH}
 
+    k20 = kern["flash_attention"]
+
+    def prefill_counted(p, c, s):
+        """One prefill whose K20 launches must all run the dtype's form:
+        the tensor-core form in bf16, the SIMT form in float32."""
+        before = {k: kern[k].launches for k in per_call}
+        tc_before = k20.launches_tc
+        out = MT.prefill(p, c, {"tokens": tokens[s]})
+        torch.cuda.synchronize()
+        got = {k: kern[k].launches - before[k] for k in per_call}
+        if got != per_call:
+            fail(f"{c.name} prefill S={s} launched {got}, not {per_call}")
+        tc = k20.launches_tc - tc_before
+        want_tc = per_call.get("flash_attention", 0) \
+            if c.compute_dtype == "bfloat16" else 0
+        if tc != want_tc:
+            fail(f"{c.name} {c.compute_dtype} prefill S={s}: {tc} K20 "
+                 f"launches in the tensor-core form, not {want_tc}")
+        return out
+
     reset_launches()
     logits = {}
     per_call = prefill_launches(cfg)
     for s in LM_SEQS:
-        before = {k: kern[k].launches for k in per_call}
-        logits[s] = MT.prefill(params, cfg, {"tokens": tokens[s]})
-        torch.cuda.synchronize()
-        got = {k: kern[k].launches - before[k] for k in per_call}
-        if got != per_call:
-            fail(f"{cfg.name} prefill S={s} launched {got}, not {per_call}")
+        logits[s] = prefill_counted(params, cfg, s)
         if not bool(torch.isfinite(logits[s]).all()):
             fail(f"{cfg.name} prefill S={s}: non-finite logits")
     read_launches(f"{cfg.name} prefill (flash) B={LM_BATCH} S={LM_SEQS}",
@@ -615,8 +702,7 @@ def lm_path(arch, dev, read_launches, reset_launches, kern) -> dict:
     # the float32 prefill on the float32 weights: the truth every bf16
     # answer of this path is held to (LM_BF16_CAPS)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    truth = {s: MT.prefill(params32, cfg32, {"tokens": tokens[s]})
-             for s in LM_SEQS}
+    truth = {s: prefill_counted(params32, cfg32, s) for s in LM_SEQS}
     rel_of = lambda a, b: float((a - b).abs().max() / b.abs().max())
     if "flash_attention" in per_call:
         xcfg = dataclasses.replace(cfg, attn_impl="xla")
@@ -641,6 +727,10 @@ def lm_path(arch, dev, read_launches, reset_launches, kern) -> dict:
                     and agree >= LM_BATCH - 1):
                 fail(f"{cfg.name} prefill S={s}: flash differs from xla")
 
+    subs = None
+    if "flash_attention" in per_call:
+        witness, subs = attn_witness(params, cfg, tokens, logits, rel_of)
+        out.update(witness)
     if "ssm_scan" in per_call:
         out.update(scan_witness(params, params32, cfg, cfg32, tokens, truth,
                                 logits, rel_of))
@@ -673,19 +763,29 @@ def lm_path(arch, dev, read_launches, reset_launches, kern) -> dict:
     rel = rel_of(last, logits[s])
     rel_truth = rel_of(last, truth[s])
     limit = LM_BF16_CAPS[cfg.family]
-    agree = float((last.argmax(-1) == logits[s].argmax(-1)).float().mean())
+    same = lambda a, b: float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    agree, agree32 = same(last, logits[s]), same(last32, truth[s])
+    # the decode's agreement with the prefill that has the plain version
+    # in K20's place (the reference's algorithm on the same card inputs):
+    # printed beside the rule, not part of it
+    agree_plain = same(last, subs[s]) if subs else None
     print(f"  decode x{s} vs prefill S={s}: float32 rel err {rel32:.3e} "
-          f"(< {F32_LM_RTOL}); bf16 rel err {rel:.3e}, to the float32 "
-          f"prefill {rel_truth:.3e} (< {limit:.3e}), argmax agreement "
-          f"{agree:.2f} (>= 0.5); {s} bf16 steps in {window:.3f}s wall: "
-          f"{step_ms:.3f} ms a step, {LM_BATCH * s / window:.1f} tokens/s",
-          flush=True)
+          f"(< {F32_LM_RTOL}), argmax agreement {agree32:.2f} (>= 0.5); "
+          f"bf16 rel err {rel:.3e}, to the float32 prefill {rel_truth:.3e} "
+          f"(< {limit:.3e}), argmax agreement {agree:.2f} (>= 0.5"
+          + ("" if agree_plain is None else
+             f"; with the plain K20's prefill: {agree_plain:.2f}")
+          + f"); {s} bf16 steps in {window:.3f}s wall: {step_ms:.3f} ms a "
+          f"step, {LM_BATCH * s / window:.1f} tokens/s", flush=True)
     out.update(decode_vs_prefill_rel_err=rel, decode_vs_prefill_argmax=agree,
+               decode_vs_plain_prefill_argmax=agree_plain,
                decode_vs_prefill_f32_rel_err=rel32,
+               decode_vs_prefill_f32_argmax=agree32,
                decode_vs_f32_prefill_rel_err=rel_truth,
                decode_step_ms=step_ms,
                decode_tokens_per_s=LM_BATCH * s / window)
-    if not (rel32 < F32_LM_RTOL and rel_truth < limit and agree >= 0.5):
+    if not (rel32 < F32_LM_RTOL and agree32 >= 0.5 and rel_truth < limit
+            and agree >= 0.5):
         fail(f"{cfg.name}: token-by-token decode diverges from the prefill")
 
     for s in LM_SEQS:
@@ -823,6 +923,8 @@ def main():
              "flash_attention": KA.flash_attention_fused,
              "flash_attention_full": lambda q, k, v:
                  KA.flash_attention_fused(q, k, v, causal=False),
+             "ops_flash_attention": lambda q, k, v: K.flash_attention(
+                 q, k, v, device=q.device),
              "ssm_scan": KS.ssm_scan_fused,
              "ops_ssm_scan": lambda x, a, b, c, chunk: K.ssm_scan(
                  x, a, b, c, chunk=chunk, device=x.device)}
@@ -851,6 +953,7 @@ def main():
              "flash_attention": KA.flash_attention_plain,
              "flash_attention_full": lambda q, k, v:
                  KA.flash_attention_plain(q, k, v, causal=False),
+             "ops_flash_attention": KA.flash_attention_plain,
              "ssm_scan": KS.ssm_scan_plain,
              # on ops' (B, S, H, ...) layout, moved to the kernel's and back
              "ops_ssm_scan": lambda x, a, b, c, chunk: (lambda y, h: (
@@ -882,6 +985,7 @@ def main():
               "flash_attention": ref.mha,
               "flash_attention_full": lambda q, k, v:
                   ref.mha(q, k, v, causal=False),
+              "ops_flash_attention": ref.mha,
               # the sequential oracle in the (B, S, H, ...) layout, its
               # answers moved back to the kernel's
               "ssm_scan": lambda x, a, b, c: (lambda y, h: (
@@ -1346,20 +1450,30 @@ def main():
                                       "flash_attention_full")):
         """K20 against its plain version and the float32 oracle on the
         same inputs, element by element: the limit is ATTN_RTOLS[dtype]
-        of softmax(q k^T) |v| + |out| (the error p's rounding can make)."""
+        of softmax(q k^T) |v| + |out| (the error p's rounding can make).
+        bf16 must run the tensor-core form, float32 the SIMT form.
+        Returns the kernel's answer of the last key."""
         dtype = str(args[0].dtype)[6:]
         rtol = ATTN_RTOLS[dtype]
         wide = tuple(t.float() for t in args)
+        k20 = kern["flash_attention"]
         for key in keys:
             scale = oracle[key](wide[0], wide[1], wide[2].abs())
+            before = (k20.launches, k20.launches_tc)
             got, want = check(key, args, f"{label} {dtype}",
                               oracle_args=wide, rtol=rtol, scale=scale)
+            tc = int(dtype == "bfloat16")
+            if (k20.launches, k20.launches_tc) != (before[0] + 1,
+                                                   before[1] + tc):
+                failures.append(f"{key} {label} {dtype}: ran the "
+                                f"{'SIMT' if tc else 'tensor-core'} form")
             worst = [float(((got.double() - w.double()).abs()
                             / (rtol * (scale.double() + w.double().abs())))
                            .max()) for w in (want, oracle[key](*wide))]
             print(f"    worst |diff| / limit: {worst[0]:.3f} against the "
                   f"plain version, {worst[1]:.3f} against the oracle",
                   flush=True)
+        return got
 
     for d in FLASH_DIMS:
         h, hkv = (24, 8) if d == 128 else (4, 2)
@@ -1371,6 +1485,25 @@ def main():
                f"B={LM_BATCH} 24/8 S=512", keys=("flash_attention",))
     attn_check(attn_case(LM_BATCH, 32, 32, LM_SEQS[0], 80, torch.bfloat16),
                f"B={LM_BATCH} 32/32 S=512 D=80", keys=("flash_attention",))
+    # the models' route: ops.flash_attention on (B, S, H, D) tensors handed
+    # over as transposed views, read through strides and answered in their
+    # layout, held like the cases above and equal bit for bit to the
+    # kernel on contiguous (B, H, S, D) copies, in both forms
+    for b, h, hkv, s, d in FLASH_STRIDED:
+        for dtype in (torch.float32, torch.bfloat16):
+            views = tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                          for t in attn_case(b, h, hkv, s, d, dtype))
+            got = attn_check(views, f"({b},{s},{h},{d}) strided",
+                             keys=("ops_flash_attention",))
+            same = torch.equal(got, KA.flash_attention_fused(
+                *(t.contiguous() for t in views)))
+            layout = got.transpose(1, 2).is_contiguous()
+            print(f"    strided == contiguous bit for bit: {same}; answer "
+                  f"in the (B, S, H, D) layout: {layout}", flush=True)
+            if not (same and layout):
+                failures.append(f"ops_flash_attention ({b},{s},{h},{d}) "
+                                f"{dtype}: strided route differs")
+            del views, got
 
     print("K21 (chunked SSD scan):", flush=True)
 
@@ -1452,11 +1585,13 @@ def main():
     launches = {name: 0 for name in kern}
 
     launches_global = {name: 0 for name in kern}
+    launches_tc = {name: 0 for name in kern}
 
     def reset_launches():
         for k in common.KERNELS:
             k.launches = 0
             k.launches_global = 0
+            k.launches_tc = 0
 
     def read_launches(path: str, expect: tuple, expect_global=(),
                       exact: dict | None = None):
@@ -1467,9 +1602,11 @@ def main():
         counts = {k.name: k.launches for k in common.KERNELS}
         glob = {k.name: k.launches_global for k in common.KERNELS
                 if k.launches_global}
+        tc = {k.name: k.launches_tc for k in common.KERNELS
+              if k.launches_tc}
         print(f"main-path launches ({path}): {json.dumps(counts)}; "
-              f"of them in the global form: {json.dumps(glob)}",
-              flush=True)
+              f"of them in the global form: {json.dumps(glob)}, in a "
+              f"tensor-core form: {json.dumps(tc)}", flush=True)
         if not all(counts[name] for name in expect):
             fail(f"a kernel of the {path} path never launched: {counts}")
         if not all(glob.get(name) for name in expect_global):
@@ -1480,6 +1617,7 @@ def main():
         for name, c in counts.items():
             launches[name] += c
             launches_global[name] += glob.get(name, 0)
+            launches_tc[name] += tc.get(name, 0)
 
     reset_launches()
     for argv in (["--slots", "8", "--lanes", "8", "--sizes", "8,12",
@@ -1887,6 +2025,9 @@ def main():
             ms, ms_max, reps = time_ms(lambda: tk(*args, **kw), 30)
             if (form == "global") != (k.launches_global > before):
                 fail(f"{name} {label}: ran the wrong form")
+            # K20's rows: the SM clock right after the kernel's window
+            # (two cards of one power limit can run at different clocks)
+            clocks = clocks_line() if name == "flash_attention" else None
             large = n is not None and n >= MID_SIZES[0]
             plain_ms, _, plain_reps = time_ms(
                 lambda: tp_(*args, **kw), 1 if name == "svd" or large else 3)
@@ -1900,13 +2041,16 @@ def main():
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
-                "library_syncs": syncs(lib) if lib else None})
+                "library_syncs": syncs(lib) if lib else None,
+                "clocks": clocks})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
                   + (f"  library {lib_ms:.4f} ms" if lib_ms else "")
                   + ("  (library syncs the host)"
-                     if sweep[-1]["library_syncs"] else ""),
+                     if sweep[-1]["library_syncs"] else "")
+                  + (f"  clocks (sm, max sm, temperature, power draw) "
+                     f"{clocks}" if clocks else ""),
                   flush=True)
             del args
         if key in SLOT_KEYS:
@@ -1918,6 +2062,7 @@ def main():
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
             "launches_global": launches_global[name],
+            "launches_tc": launches_tc[name],
             "max_abs_err": max_err[name],
             "rtol": RTOLS.get(name, RTOL),
             "lanes": head["lanes"], "shapes": head["shapes"],

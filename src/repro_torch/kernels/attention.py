@@ -11,10 +11,24 @@ query head h to kv head h // (H / Hkv).
 The kernel (``csrc/flash_attention.cu``) runs one CUDA block per (batch,
 head, 64 query rows); the reference's sequential kv grid axis is a loop
 inside it that stops at the diagonal when causal, with m, l and the
-accumulator in registers and each kv tile in shared memory.  It keeps
-the reference's numerics: scores and the softmax in float32, -1e30 (not
--inf) on masked scores, p rounded to v's dtype before the P V product,
-l clamped at 1e-30.
+accumulator in registers and each kv tile in shared memory.  It has two
+forms, chosen by the dtype:
+
+  * bfloat16: the tensor-core form — ``mma.sync`` bf16 products with
+    float32 accumulators, ``ldmatrix`` fragments, kv tiles of 128 rows
+    (the reference's, so p is rounded against the same running max)
+    loaded by ``cp.async`` ahead of their use, P kept in registers
+    between the softmax and P V (``launches_tc`` counts the launches
+    that the C entry reports in this form);
+  * float32: the SIMT form — IEEE float32 FMAs, kv tiles of min(128, S).
+
+Both keep the reference's numerics: scores and the softmax in float32,
+-1e30 (not -inf) on masked scores, l summed from the unrounded p, p
+rounded to v's dtype before the P V product, l clamped at 1e-30.  Both
+read q, k, v and write the output through element strides (the last
+axis contiguous), so the models' (B, S, H, D) tensors go in as
+transposed views and the output comes back in their layout, with no
+copy.
 
 :func:`flash_attention_plain` follows ``_flash_kernel`` tile by tile
 (bq = bkv = min(128, S)) with the batch and heads written out; a CPU
@@ -100,23 +114,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 _KERNEL = CudaKernel(
     "flash_attention", "flash_attention_run",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                   ctypes.c_int],
-    "flash_attention_smem", 1,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    + [ctypes.c_float, ctypes.c_int] + [ctypes.c_longlong] * 12
+    + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    "flash_attention_smem", 2,
     source="src/repro_torch/csrc/flash_attention.cu",
     replaces="src/repro/kernels/attention.py:81 flash_attention_pallas")
+
+
+def _row_align(t: torch.Tensor) -> int:
+    """The widest copy, 16, 8 or the element's bytes, that t's pointer,
+    row length and batch, head and row strides all allow."""
+    el = t.element_size()
+    offsets = [t.data_ptr(), t.shape[-1] * el] + [
+        st * el for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    return next((w for w in (16, 8) if all(o % w == 0 for o in offsets)),
+                el)
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    """t's batch, head and row strides in elements (0 on an axis of
+    length 1)."""
+    return tuple(st if n > 1 else 0
+                 for st, n in zip(t.stride()[:3], t.shape[:3]))
 
 
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           scale: float | None = None, bq: int = 128,
                           bkv: int = 128) -> torch.Tensor:
-    """q (B, H, S, D), k/v (B, Hkv, S, D), all float32 or all bfloat16,
-    contiguous, on one device -> (B, H, S, D) in q's dtype.  ``causal``
-    needs Sq == Skv; each S must divide by its tile min(128, S).  K20 on a
-    CUDA tensor (one launch; D <= 128 with D % 4 == 0), its plain version
-    on a CPU one."""
-    dev = check_tensors("flash_attention", q, k, v, dtypes=DTYPES)
+    """q (B, H, S, D), k/v (B, Hkv, S, D), all float32 or all bfloat16 on
+    one device -> (B, H, S, D) in q's dtype and, where q is dense, q's
+    layout.  ``causal`` needs Sq == Skv; each S must divide by its tile
+    min(128, S).  K20 on a CUDA tensor (one launch; D <= 128 with D % 4
+    == 0): the tensor-core form for bfloat16, the SIMT form for float32;
+    its plain version on a CPU one.  Views are read through their
+    strides; a tensor whose last axis is not contiguous (or, in bfloat16,
+    whose rows are not 8-byte aligned) is copied first."""
+    dev = check_tensors("flash_attention", q, k, v, dtypes=DTYPES,
+                        contiguous=False)
     _, bkv = _tiles(q, k, v, causal, bq, bkv)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
@@ -128,10 +164,19 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor,
                          f"{MAX_KERNEL_D} with D % 4 == 0, got D = {d}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    bf16 = q.dtype == torch.bfloat16
+    q, k, v = (t.clone(memory_format=torch.contiguous_format)
+               if t.stride(-1) != 1 or (bf16 and _row_align(t) < 8) else t
+               for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel():
-        _KERNEL.launch(dev, (d,), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), b, h, hkv, sq, skv, d, bkv,
-                       int(causal), float(scale),
-                       int(q.dtype == torch.bfloat16))
+        vec16 = all(_row_align(t) == 16 for t in (q, k, v, out))
+        tc = ctypes.c_int(-1)           # the form the C entry launched
+        _KERNEL.launch(dev, (d, int(bf16)), q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, d,
+                       bkv, int(causal), float(scale), int(bf16),
+                       *_strides(q), *_strides(k), *_strides(v),
+                       *_strides(out), int(vec16), ctypes.byref(tc))
+        if tc.value == 1:
+            _KERNEL.launches_tc += 1
     return out

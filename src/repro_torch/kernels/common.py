@@ -85,10 +85,11 @@ def check_f32(name: str, *tensors: torch.Tensor) -> torch.device:
     return check_tensors(name, *tensors, dtypes=(torch.float32,))
 
 
-def check_tensors(name: str, *tensors: torch.Tensor,
-                  dtypes: tuple) -> torch.device:
+def check_tensors(name: str, *tensors: torch.Tensor, dtypes: tuple,
+                  contiguous: bool = True) -> torch.device:
     """Validate a kernel's tensor arguments: one dtype among ``dtypes``
-    for all of them, contiguous, on one CPU or CUDA device.  Returns that
+    for all of them, contiguous (unless ``contiguous`` is False, for a
+    kernel that reads strides), on one CPU or CUDA device.  Returns that
     device."""
     for t in tensors:
         if not isinstance(t, torch.Tensor):
@@ -100,7 +101,7 @@ def check_tensors(name: str, *tensors: torch.Tensor,
                                for d in dtypes)
             raise TypeError(f"{name}: expected {want} tensors of one "
                             f"dtype, got {[x.dtype for x in tensors]}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
@@ -214,9 +215,10 @@ class CudaKernel:
     ``launches`` counts the kernel's launches in this process; it rises
     by one where :meth:`launch` launches the kernel and nowhere else, so
     a run can show that its path went through the kernel.
-    ``launches_global`` counts those of them that ran the global form.
-    ``source`` and ``replaces`` name the CUDA source and the TPU kernel
-    it ports."""
+    ``launches_global`` counts those of them that ran the global form,
+    ``launches_tc`` those that the C entry reports in a tensor-core form
+    (K20's wrapper counts it).  ``source`` and ``replaces`` name the CUDA
+    source and the TPU kernel it ports."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
                  smem_symbol: str, smem_args: int, source: str,
@@ -231,6 +233,7 @@ class CudaKernel:
         self.replaces = replaces
         self.launches = 0
         self.launches_global = 0
+        self.launches_tc = 0
         self._fn = None
         self._smem_fn = None
         self._work_fn = None

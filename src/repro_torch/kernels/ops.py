@@ -118,9 +118,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, bq: int = 128,
                     bkv: int = 128, device=None) -> torch.Tensor:
     """q (B, H, S, D), k/v (B, Hkv, S, D), H % Hkv == 0 -> (B, H, S, D);
-    causal needs square attention, and S must divide by min(128, S)."""
-    return flash_attention_fused(*_on(device, q, k, v), causal=causal,
-                                 scale=scale, bq=bq, bkv=bkv)
+    causal needs square attention, and S must divide by min(128, S).
+    The kernel reads views through their strides (the models hand over
+    transposed (B, S, H, D) tensors) and answers in q's layout, so no
+    copy is made on either side."""
+    dev = resolve_device(device)
+    return flash_attention_fused(
+        *(torch.as_tensor(t, device=dev) for t in (q, k, v)),
+        causal=causal, scale=scale, bq=bq, bkv=bkv)
 
 
 def ssm_scan(x, a, b, c, *, chunk: int = 128, device=None):

@@ -111,6 +111,8 @@ def attend_train(q, k, v, cfg, causal: bool = True):
         impl = "xla" if s <= max(cfg.attn_chunk, 1024) else "chunked"
 
     if impl == "flash":
+        # K20 reads the (B, H, S, D) views through their strides and
+        # answers in q's layout: the transposes copy nothing
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
                                 device=q.device)

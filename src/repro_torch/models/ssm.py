@@ -10,6 +10,16 @@ instead (every input upcast to float32 inside), so the two agree to
 rounding in float32 and within the reference's bf16 model rule in
 bfloat16.
 
+The decode step runs the prefill's arithmetic: its conv taps are summed
+one by one in the compute dtype, as ``_causal_conv`` sums them, and the
+decay and x * dt are rounded to it before the float32 state update, where
+``mamba_train`` rounds them for the scan.  The reference's decode sums
+the taps at once and keeps both in float32, so in bfloat16 its decode and
+its prefill run two recurrences (a decay within 2^-9 of 1 rounds to 1 in
+one and not in the other), and a deep stack widens that gap past the
+argmax agreement of greedy decoding.  In float32 the two forms are the
+same but for summation order.
+
 ``softplus`` is ``jax.nn.softplus``'s ``logaddexp(x, 0)``
 (``torch.logaddexp``), not ``F.softplus``, which turns linear above 20.
 """
@@ -122,17 +132,22 @@ def mamba_decode(p: dict, cfg, x: torch.Tensor, state: torch.Tensor,
     z, xc, bmat, cmat, dt = _split_proj(p, ssm, d, proj)
     conv_in = torch.cat([xc, bmat, cmat], dim=-1)               # (B, C)
     window = torch.cat([conv_buf.to(x.dtype), conv_in[:, None]], dim=1)
+    # _causal_conv's sum at the window's last position, tap by tap
     w = p["conv_w"].to(x.dtype)
-    conv = F.silu(torch.einsum("bkc,kc->bc", window, w))
+    conv = window[:, 0] * w[0]
+    for i in range(1, w.shape[0]):
+        conv = conv + window[:, i] * w[i]
+    conv = F.silu(conv)
     new_buf = window[:, 1:].to(conv_buf.dtype)
     xc = conv[:, :di]
     bmat = conv[:, di:di + ssm.state]
     cmat = conv[:, di + ssm.state:]
     dt = softplus(dt.float() + p["dt_bias"][None, :])
-    a = torch.exp(-torch.exp(p["a_log"])[None, :] * dt)         # (B, H)
-    xh = xc.reshape(b, hh, pp).float() * dt[..., None]
+    # decay and x * dt rounded as the prefill rounds them for the scan
+    a = torch.exp(-torch.exp(p["a_log"])[None, :] * dt).to(x.dtype)
+    xh = (xc.reshape(b, hh, pp).float() * dt[..., None]).to(x.dtype)
     state = a[..., None, None] * state + torch.einsum(
-        "bn,bhp->bhnp", bmat.float(), xh)
+        "bn,bhp->bhnp", bmat.float(), xh.float())
     y = torch.einsum("bn,bhnp->bhp", cmat.float(), state)
     y = y.to(x.dtype) + xc.reshape(b, hh, pp) \
         * p["d_skip"].to(x.dtype)[None, :, None]

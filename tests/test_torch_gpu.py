@@ -4,15 +4,20 @@ on lanes past shared memory (their global form), the tiled K12-K14 with
 slabs streamed past shared memory, the served DAGs' golden replay, the
 launch counts of the unfused baselines and the DSP chain, K17 on a wide
 matrix and K1 on bf16, K18 and K20 at their registry cases and the LM
-shapes, the smoke model's prefill on K20 and the decode golden replay on
-the card; K21 at its registry case and at zamba2-2.7b's and xlstm-125m's
-prefill shapes, and the hybrid and xLSTM smoke prefills with their exact
-K21 and K20 launch counts.
+shapes (K20's bf16 tensor-core form and float32 SIMT form at ragged and
+narrow shapes and at the full-width prefill shapes, and its strided route
+equal bit for bit to the contiguous one), the smoke model's prefill on
+K20 (every bf16 launch in the tensor-core form) and the decode golden
+replay on the card; K21 at its registry case and at zamba2-2.7b's and
+xlstm-125m's prefill shapes, and the hybrid and xLSTM smoke prefills
+with their exact K21 and K20 launch counts.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+(``-k flash`` for K20's cases alone.)
 """
 import importlib
 import json
@@ -812,39 +817,100 @@ def test_gemm_registry_cases_and_guard_on_card(hopper):
 ATTN_RTOLS = {"float32": 1e-4, "bfloat16": 5e-3}
 
 
-@pytest.mark.parametrize("d", [8, 64, 80, 128])
-@pytest.mark.parametrize("s", [96, 128, 512])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_kernel_matches_plain_version(hopper, d, s, causal, dtype):
-    """K20 at phi4-mini's head width (128), zamba2's (80), the registry's
-    (64) and the smoke configs' (8), at S = 96, 128 and 512, causal and
-    not, GQA 4/2, against its plain version on the same card inputs.
-    The scores are peaked (q and k at sigma 1.5, so each row's max moves
-    from kv tile to kv tile) and a score of ~18 is planted in the last kv
-    tile (q with a common component 3 / sqrt(D), the key at s - 1 - s //
-    16 all 6), where the running max jumps and all before must be
+def _peaked_qkv(hopper, b, h, hkv, s, d, dt, seed):
+    """Peaked scores: q and k at sigma 1.5 (so each row's max moves from
+    kv tile to kv tile) and a score of ~18 planted in the last kv tile
+    (q with a common component 3 / sqrt(D), the key at s - 1 - s // 16
+    all 6), where the running max jumps and all before must be
     rescaled."""
-    dt = getattr(torch, dtype)
-    rng = np.random.default_rng(d + s)
-    q = rng.standard_normal((1, 4, s, d)) * 1.5 + 3.0 / np.sqrt(d)
-    k = rng.standard_normal((1, 2, s, d)) * 1.5
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, s, d)) * 1.5 + 3.0 / np.sqrt(d)
+    k = rng.standard_normal((b, hkv, s, d)) * 1.5
     k[:, :, s - 1 - s // 16] = 6.0
-    v = rng.standard_normal((1, 2, s, d))
-    q, k, v = (torch.from_numpy(a.astype(np.float32)).to(hopper, dt)
-               for a in (q, k, v))
-    before = _launches("flash_attention")
-    got = tattn.flash_attention_fused(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert _launches("flash_attention") == before + 1
+    v = rng.standard_normal((b, hkv, s, d))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(hopper, dt)
+                 for a in (q, k, v))
+
+
+def _flash_worst(got, q, k, v, causal, dtype):
+    """The largest |got - plain| over its limit ATTN_RTOLS[dtype] *
+    (softmax(q k^T) |v| + |plain|), element by element."""
     want = tattn.flash_attention_plain(q, k, v, causal=causal).double()
     scale = tattn.flash_attention_plain(q.float(), k.float(),
                                         v.float().abs(), causal=causal)
     err = (got.double() - want).abs()
     tol = ATTN_RTOLS[dtype] * (scale.double() + want.abs())
-    worst = float((err / tol).max())
+    return float((err / tol).max())
+
+
+def _forms():
+    kern = next(k for k in KERNELS if k.name == "flash_attention")
+    return kern.launches, kern.launches_tc
+
+
+@pytest.mark.parametrize("d", [4, 8, 12, 64, 80, 128])
+@pytest.mark.parametrize("s", [5, 96, 100, 128, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_version(hopper, d, s, causal, dtype):
+    """K20 at phi4-mini's head width (128), zamba2's (80), the registry's
+    (64), the smoke configs' (8) and widths that are not multiples of 8
+    (4, 12: the 8-byte copies), at S = 5, 96, 100 (ragged q and kv
+    tiles), 128 and 512, causal and not, GQA 4/2, against its plain
+    version on the same card inputs, on peaked scores.  bf16 runs the
+    tensor-core form, float32 the SIMT form."""
+    dt = getattr(torch, dtype)
+    q, k, v = _peaked_qkv(hopper, 1, 4, 2, s, d, dt, d + s)
+    before = _forms()
+    got = tattn.flash_attention_fused(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tc = int(dtype == "bfloat16")
+    assert _forms() == (before[0] + 1, before[1] + tc)
+    worst = _flash_worst(got, q, k, v, causal, dtype)
     assert worst <= 1.0, (f"flash d={d} s={s} {dtype}: |diff| reaches "
                           f"{worst:.3g} of its limit")
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d", [(4, 24, 8, 512, 128),
+                                         (4, 32, 32, 512, 80)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_full_width_prefill_shapes(hopper, b, h, hkv, s, d,
+                                                   dtype):
+    """K20 at the shapes the LM prefills launch it at: phi4-mini's (4,
+    24, 512, 128) with GQA 24/8 and zamba2's (4, 32, 512, 80), causal, on
+    peaked scores, against its plain version element by element."""
+    dt = getattr(torch, dtype)
+    q, k, v = _peaked_qkv(hopper, b, h, hkv, s, d, dt, d)
+    before = _forms()
+    got = tattn.flash_attention_fused(q, k, v)
+    torch.cuda.synchronize()
+    assert _forms() == (before[0] + 1,
+                        before[1] + int(dtype == "bfloat16"))
+    worst = _flash_worst(got, q, k, v, True, dtype)
+    assert worst <= 1.0, (f"flash ({b},{h},{s},{d}) {dtype}: |diff| "
+                          f"reaches {worst:.3g} of its limit")
+
+
+@pytest.mark.parametrize("d,s,causal", [(128, 512, True), (80, 100, True),
+                                        (12, 96, False), (4, 5, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_strided_route_equals_contiguous_one(hopper, d, s, causal,
+                                                   dtype):
+    """ops.flash_attention on the models' (B, S, H, D) tensors handed
+    over as transposed views: the kernel reads them through their
+    strides, answers in their layout (the transpose back is contiguous)
+    and equals its answer on contiguous (B, H, S, D) copies bit for
+    bit, in both forms."""
+    dt = getattr(torch, dtype)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _peaked_qkv(hopper, 2, 4, 2, s, d, dt, s))
+    assert not q.is_contiguous()
+    got = TK.flash_attention(q, k, v, causal=causal, device=hopper)
+    want = TK.flash_attention(*(t.contiguous() for t in (q, k, v)),
+                              causal=causal, device=hopper)
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, want)
 
 
 def test_flash_registry_case_and_guards_on_card(hopper):
@@ -882,6 +948,29 @@ def test_prefill_on_flash_kernel_matches_xla_impl(hopper):
                       {"tokens": toks})
     assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-3,
                  name="flash-vs-xla prefill")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_prefill_runs_every_k20_launch_in_its_dtype_form(hopper, dtype):
+    """The smoke phi4-mini's prefill with attn_impl="flash": in bf16
+    compute every K20 launch runs the tensor-core form, in float32 none
+    does; one launch a layer either way, and finite logits."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tT
+    cfg = dataclasses.replace(get_smoke("phi4-mini-3.8b"),
+                              compute_dtype=dtype, attn_impl="flash")
+    gen = torch.Generator(device=hopper)
+    gen.manual_seed(0)
+    p = tT.cast_params(tT.init_params(gen, cfg), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256))).to(hopper)
+    before = _forms()
+    got = tT.prefill(p, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    tc = cfg.n_layers if dtype == "bfloat16" else 0
+    assert _forms() == (before[0] + cfg.n_layers, before[1] + tc)
+    assert bool(torch.isfinite(got).all())
 
 
 def test_decode_golden_replay_on_card(hopper):

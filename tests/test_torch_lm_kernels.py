@@ -215,6 +215,57 @@ def test_flash_peaked_scores_match_pallas(b, h, hkv, s, d, causal, dtype):
                 "oracle")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(5, 4), (5, 12), (100, 4), (100, 12)])
+def test_flash_ragged_tiles_and_narrow_heads_match_pallas(s, d, causal,
+                                                          dtype):
+    """The shapes the kernel's tensor-core form tiles raggedly: S = 5 and
+    100 (one q and kv tile of S rows in the reference, a ragged tile of
+    the kernel's 64) and D = 4, 12 (not multiples of 8), GQA 4/2, on
+    peaked scores: the plain version against the reference's Pallas
+    kernel and the float32 oracle, element by element."""
+    q, k, v = _peaked_qkv(np.random.default_rng(s + d), 1, 4, 2, s, d)
+    jdt = getattr(jnp, dtype)
+    got = tops.flash_attention(*(_t(a).to(getattr(torch, dtype))
+                                 for a in (q, k, v)),
+                               causal=causal, device="cpu").float().numpy()
+    j = tuple(jnp.asarray(a, jdt) for a in (q, k, v))
+    wide = tuple(jnp.asarray(a, jnp.float32) for a in j)
+    scale = _np(jref.mha(wide[0], wide[1], jnp.abs(wide[2]), causal=causal))
+    rtol = ATTN_RTOLS[dtype]
+    _attn_close(got, _np(flash_attention_pallas(*j, causal=causal,
+                                                interpret=True)),
+                scale, rtol, "pallas")
+    _attn_close(got, _np(jref.mha(*wide, causal=causal)), scale, rtol,
+                "oracle")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(100, 12), (256, 16)])
+def test_flash_strided_route_equals_contiguous_on_cpu(s, d, causal, dtype):
+    """ops.flash_attention on (B, S, H, D) tensors handed over as
+    transposed views, as the models call it: no copy is asked for, the
+    answer comes back in q's layout (its transpose is contiguous) and
+    equals the answer on contiguous (B, H, S, D) copies bit for bit, as
+    does a view whose last axis is strided."""
+    rng = np.random.default_rng(s)
+    dt = getattr(torch, dtype)
+    q, k, v = (_t(a).to(dt).transpose(1, 2).contiguous().transpose(1, 2)
+               for a in _peaked_qkv(rng, 2, 4, 2, s, d))
+    assert not q.is_contiguous()
+    got = tops.flash_attention(q, k, v, causal=causal, device="cpu")
+    want = tops.flash_attention(*(t.contiguous() for t in (q, k, v)),
+                                causal=causal, device="cpu")
+    assert got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, want)
+    qt = q.contiguous().transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert qt.stride(-1) != 1
+    assert torch.equal(tattn.flash_attention_fused(qt, k, v, causal=causal),
+                       want)
+
+
 def test_flash_bf16_matches_pallas():
     """bf16 inputs: scores and softmax in float32, p rounded to bf16
     before P V, as the reference's kernel does."""

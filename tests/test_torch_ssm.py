@@ -292,6 +292,43 @@ def test_mamba_block_train_and_decode_match_the_reference():
     assert _rel(cv.numpy(), jcv) < BLOCK_RTOL
 
 
+@pytest.mark.parametrize("dt_bias", [0.0, -6.0])
+def test_mamba_decode_rounds_where_the_prefill_rounds(dt_bias):
+    """In bfloat16 the decode step, token by token, gives every element of
+    ``mamba_train``'s answer to within one rounding of it (2^-8 of
+    itself): its conv taps, decay and x * dt round where the prefill
+    rounds them for the scan.  ``dt_bias`` -6 puts the decays within 2^-8
+    of 1, where the rounding decides how much a state decays.  The
+    reference's decode step, which keeps the decay and x * dt in float32
+    and sums the taps at once, misses this on most elements."""
+    jcfg = rget_smoke("zamba2-2.7b")
+    cfg = get_smoke("zamba2-2.7b")
+    assert cfg.compute_dtype == jcfg.compute_dtype == "bfloat16"
+    jp = JS.init_mamba(jax.random.key(3), jcfg.d_model, jcfg.ssm)
+    jp = dict(jp, dt_bias=jnp.full_like(jp["dt_bias"], dt_bias))
+    jp = {k: v.astype(jnp.bfloat16) if v.ndim >= 2 else v
+          for k, v in jp.items()}
+    p = {k: _t(np.asarray(v, np.float32)).to(getattr(torch, v.dtype.name))
+         for k, v in jp.items()}
+    x = np.random.default_rng(4).standard_normal((2, 32, jcfg.d_model))
+    jx = jnp.asarray(x, jnp.bfloat16)
+    tx = _t(np.asarray(jx, np.float32)).to(torch.bfloat16)
+    want = TS.mamba_train(p, cfg, tx).float().numpy()
+    tc, jc = TS.init_mamba_cache(cfg, 2, 1), JS.init_mamba_cache(jcfg, 2, 1)
+    st, cv, jst, jcv = tc["state"][0], tc["conv"][0], jc["state"][0], \
+        jc["conv"][0]
+    got, jgot = [], []
+    for t in range(x.shape[1]):
+        o, st, cv = TS.mamba_decode(p, cfg, tx[:, t:t + 1], st, cv)
+        jo, jst, jcv = JS.mamba_decode(jp, jcfg, jx[:, t:t + 1], jst, jcv)
+        got.append(o.float().numpy())
+        jgot.append(np.asarray(jo, np.float32))
+    one_rounding = 2.0 ** -8 * np.abs(want)
+    assert np.all(np.abs(np.concatenate(got, 1) - want) <= one_rounding)
+    missed = np.abs(np.concatenate(jgot, 1) - want) > one_rounding
+    assert missed.mean() > 0.5
+
+
 def test_mlstm_and_slstm_blocks_match_the_reference():
     jcfg, cfg = _cfgs("xlstm-125m")
     d, nh = jcfg.d_model, jcfg.n_heads
