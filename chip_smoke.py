@@ -41,7 +41,16 @@ Phases, each fatal on failure:
                wide 4 x 6 matrix and K1 on bf16 (the reference's case).
                The LM kernels: K18 (GEMM) at the registry's squares and
                through ops.gemm at 1000 x 300 @ 300 x 700, 129 x 257 @
-               257 x 65, 1 x 1 and in bf16; K20 (flash attention) at the
+               257 x 65, 1 x 1 and in bf16, and in bf16 at 129 x 257 x
+               65, 1 x 1 x 1, 100 x 13 x 50, 64 x 64 x 60 (K or N not a
+               multiple of 8: the padded route), 1 x 4096 x 256, 4096 x
+               64 x 4096, 2048^3 and 4096^3 (M x K x N), element by
+               element against the plain version and the float32 oracle
+               within a bf16 step and a float32 sum-order term
+               (GEMM_BF16_STEP, GEMM_BF16_SUM), 4096^3 twice bit for bit;
+               every float32 launch in its SIMT form and every bf16 one in
+               its tensor-core form, as the C entry reports (here, in the
+               ops path and in the timings); K20 (flash attention) at the
                registry case and at D = 4, 8, 12, 64, 80, 128 by S = 5,
                96, 100, 128, 512 (ragged q and kv tiles), causal and not,
                float32 (the SIMT form) and bf16 (the tensor-core form),
@@ -118,11 +127,12 @@ Phases, each fatal on failure:
                n = 8, 16, 32 the wall of each unfused chain (events
                around the whole chain, its copies and library products
                included) beside its fused kernel (K1, K4, K2).  K18 at
-               64^2, 128^2, 1000 x 300 x 700 and 4096^3 (bf16 and float32,
-               beside torch.matmul with TF32 off); K20 at the registry
-               case and phi4-mini's and zamba2's prefill shapes (beside
-               scaled_dot_product_attention with the KV heads repeated,
-               the SM clock printed beside each row);
+               64^3, 128^3, 1000 x 300 x 700 (float32 and bf16) and 4096^3
+               (bf16 and float32), beside torch.matmul with TF32 off;
+               K20 at the registry case and phi4-mini's and zamba2's
+               prefill shapes (beside scaled_dot_product_attention with
+               the KV heads repeated, the SM clock printed beside each
+               row);
                K21 at xlstm-125m's and zamba2-2.7b's prefill shapes in
                bf16 (no PyTorch call computes the scan);
                the full-width prefill and decode step as wall time over a
@@ -275,6 +285,20 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM, bfloat16 tensor cores, dense
 # (tests/test_models.py::test_prefill_decode_consistency).
 BF16_RTOL = 2e-2
 LM_RTOL = 5e-2
+# K18 in bf16 element by element, against its plain version and against the
+# float32 oracle on the same bf16 inputs: |got - want| <= GEMM_BF16_STEP
+# |want| + GEMM_BF16_SUM (|x| |y|): one bf16 step of the answer (each side
+# rounds its float32 sum once, and two roundings of nearly equal sums may
+# land a step apart) plus a float32 sum-order term on the sum of
+# |products|.  A stale or skipped pipeline stage moves whole products.
+GEMM_BF16_STEP = 2.0 ** -7
+GEMM_BF16_SUM = 2.0 ** -16
+# K18's bf16 checks (M, K, N): K % 8 and N % 8 != 0 (the padded route), a
+# long k axis (the ring wraps 16 times), many waves of tiles, and 4096^3,
+# run twice and required bit-identical (a barrier race gives two answers)
+GEMM_BF16_CASES = ((129, 257, 65), (1, 1, 1), (100, 13, 50), (64, 64, 60),
+                   (1, 4096, 256), (4096, 64, 4096), (2048, 2048, 2048),
+                   (4096, 4096, 4096))
 # The LM paths' two comparisons, flash prefill vs xla prefill and
 # token-by-token decode vs prefill, are made in float32 compute (with a
 # float32 KV cache), where both sides are exact but for rounding: within
@@ -308,11 +332,12 @@ FLASH_SEQS = (5, 96, 100, 128, 512)
 FLASH_STRIDED = ((LM_BATCH, 24, 8, 512, 128), (LM_BATCH, 32, 32, 512, 80),
                  (2, 4, 2, 100, 12))
 # timing rows, the head row last: K18 at the registry's squares, a shape
-# that is not a multiple of its tile and 4096^3 (bf16, then float32); K20
+# that is not a multiple of its tiles (float32, then bf16) and 4096^3
+# (bf16, then float32); K20
 # at the registry case and at phi4-mini's prefill shapes
 GEMM_TIMES = ((64, 64, 64, "float32"), (128, 128, 128, "float32"),
-              (1000, 300, 700, "float32"), (4096, 4096, 4096, "bfloat16"),
-              (4096, 4096, 4096, "float32"))
+              (1000, 300, 700, "float32"), (1000, 300, 700, "bfloat16"),
+              (4096, 4096, 4096, "bfloat16"), (4096, 4096, 4096, "float32"))
 FLASH_TIMES = ((1, 2, 2, 128, 64, "float32"),
                (LM_BATCH, 32, 32, 512, 80, "bfloat16"),
                (LM_BATCH, 24, 8, 128, 128, "bfloat16"),
@@ -1007,8 +1032,17 @@ def main():
         Returns the kernel's and the plain version's answers."""
         rtol = rtol or RTOLS.get(key, RTOL)
         rtol_o = max(rtol, ORACLE_RTOLS.get(key, rtol))
+        k18 = kern["gemm"]
+        forms = (k18.launches, k18.launches_tc)
         got = fused[key](*args, **kw)
         torch.cuda.synchronize()
+        if KERNEL_OF.get(key, key) == "gemm":     # bf16: the tensor cores
+            ran = k18.launches - forms[0]
+            tc = ran if args[0].dtype == torch.bfloat16 else 0
+            if k18.launches_tc - forms[1] != tc:
+                failures.append(f"{key} {label}: {ran} launches, "
+                                f"{k18.launches_tc - forms[1]} in the "
+                                f"tensor-core form, not {tc}")
         want = plain[key](*args, **kw)
         ok, err = close(got, want, rtol, scale)
         name = KERNEL_OF.get(key, key)
@@ -1434,6 +1468,37 @@ def main():
                        rand(rng, 300, 700).bfloat16()),
           "ops.gemm 1000x300x700 bf16", rtol=BF16_RTOL)
 
+    def gemm_bf16_check(x, y):
+        """K18 in bf16 (its tensor-core form: ``check`` holds the form)
+        against its plain version and the float32 oracle on the same
+        inputs, at BF16_RTOL and element by element within
+        GEMM_BF16_STEP |want| + GEMM_BF16_SUM (|x| |y|).  Returns the
+        kernel's answer."""
+        label = f"{x.shape[0]}x{x.shape[1]}x{y.shape[1]} bf16"
+        got, want = check("gemm", (x, y), label, rtol=BF16_RTOL)
+        wide = x.float() @ y.float()
+        limit = (GEMM_BF16_SUM * (x.float().abs() @ y.float().abs())).double()
+        worst = [float(((got.double() - w.double()).abs()
+                        / (GEMM_BF16_STEP * w.double().abs() + limit)
+                        .clamp_min(1e-300)).max()) for w in (want, wide)]
+        print(f"    worst |diff| / limit: {worst[0]:.3f} against the plain "
+              f"version, {worst[1]:.3f} against the float32 oracle",
+              flush=True)
+        if max(worst) > 1.0:
+            failures.append(f"gemm {label}: element beyond its limit")
+        return got
+
+    for m, kk, n in GEMM_BF16_CASES:
+        x, y = grand(m, kk).bfloat16(), grand(kk, n).bfloat16()
+        got = gemm_bf16_check(x, y)
+        if (m, kk, n) == GEMM_BF16_CASES[-1]:
+            again = KG.gemm_fused(x, y)
+            same = torch.equal(got, again)
+            print(f"    run twice: bit-identical {same}", flush=True)
+            if not same:
+                failures.append(f"gemm {m}x{kk}x{n} bf16: two runs differ")
+        del x, y, got
+
     def attn_case(b, h, hkv, s, d, dtype):
         """Peaked scores: q and k at sigma 1.5 (scaled scores of sigma
         ~2.25, so each row's max moves from kv tile to kv tile), q with
@@ -1762,6 +1827,9 @@ def main():
     read_launches("primitive API ops.gemm / ops.flash_attention",
                   ("gemm", "flash_attention"),
                   exact={"gemm": 4, "flash_attention": 1})
+    if kern["gemm"].launches_tc != 1:          # the bf16 call, and no other
+        fail(f"ops.gemm: {kern['gemm'].launches_tc} of 4 K18 launches in "
+             f"the tensor-core form, not 1 (the bf16 call)")
 
     # the decode golden: the committed mixed solver + decode trace through
     # the port's mux on the card (K2 serves its solver jobs), event for
@@ -2021,10 +2089,15 @@ def main():
                     peak = PEAK_BF16_FLOPS
             t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
             t_ops = flops / peak * 1e3
-            before = k.launches_global
+            before = (k.launches_global, k.launches, k.launches_tc)
             ms, ms_max, reps = time_ms(lambda: tk(*args, **kw), 30)
-            if (form == "global") != (k.launches_global > before):
+            if (form == "global") != (k.launches_global > before[0]):
                 fail(f"{name} {label}: ran the wrong form")
+            ran, tc = k.launches - before[1], k.launches_tc - before[2]
+            if name == "gemm" and tc != (
+                    ran if args[0].dtype == torch.bfloat16 else 0):
+                fail(f"gemm {label}: {tc} of {ran} launches in the "
+                     f"tensor-core form")
             # K20's rows: the SM clock right after the kernel's window
             # (two cards of one power limit can run at different clocks)
             clocks = clocks_line() if name == "flash_attention" else None

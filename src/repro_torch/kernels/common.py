@@ -217,8 +217,8 @@ class CudaKernel:
     a run can show that its path went through the kernel.
     ``launches_global`` counts those of them that ran the global form,
     ``launches_tc`` those that the C entry reports in a tensor-core form
-    (K20's wrapper counts it).  ``source`` and ``replaces`` name the CUDA
-    source and the TPU kernel it ports."""
+    (K18's and K20's wrappers count it).  ``source`` and ``replaces``
+    name the CUDA source and the TPU kernel it ports."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
                  smem_symbol: str, smem_args: int, source: str,
