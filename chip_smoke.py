@@ -9,6 +9,10 @@ Phases, each fatal on failure:
 
   1. device  — the card's name and power limit (nvidia-smi), TF32 off;
   2. build   — every kernel in src/repro_torch/csrc built from source;
+               K7's plan at each size (threads a row, points a thread,
+               stages a pass, rows a CTA, staged batches a warp, shared
+               memory) and its instance's -Xptxas -v registers and
+               spills;
   3. kernels — K1-K21 held against their plain PyTorch versions
                and the oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
@@ -16,7 +20,11 @@ Phases, each fatal on failure:
                the FFT over 3276 (n + 4) antenna rows of 64 points and
                3276 rows of 1024) and on the guard cases (poisoned upper
                triangle, singular and rank-deficient lanes, filler lanes,
-               a unit impulse).  The SVD is held by sorted spectrum and
+               a unit impulse); K7 equal to its plain version bit for bit
+               at the PUSCH DAG's shape in the stacked layout (3276 x 36
+               rows of 64), at 3276 rows of 1024, of 4096 (the carrier's
+               OFDM size, K7's wide route) and of 2.  The SVD is held by
+               sorted spectrum and
                reconstruction, its factors being sign/order ambiguous.
                The mid-range path: the blocked K10/K11 at n = 128 and
                256 with both panel widths at B = 3276, and K1-K4 on lanes
@@ -117,7 +125,8 @@ Phases, each fatal on failure:
                the same weights);
   5. times   — each kernel at B = 3276 timed with CUDA events (cold L2)
                beside its bound, its plain version and, where one PyTorch
-               call computes the same function, that call; the blocked
+               call computes the same function, that call (K7's rows
+               also print the share of 3.35 TB/s each reaches); the blocked
                kernels and the global forms at n = 128 and 256, K2's
                shared form at n = 128, and the tiled kernels at n = 512
                (B = 3276) and 1024 (B = 264); K15-K17 at B = 3276 (K16
@@ -179,6 +188,7 @@ GLOBAL_CASES = (("cholesky_solve", 250, None), ("mmse_equalize", 256, None),
                 ("mmse_equalize_split", 512, None), ("qr_solve", 250, 254))
 NFFT = 64                    # the PUSCH DAG's OFDM size
 NFFT_MAX = 1024              # the largest registered FFT size
+NFFT_CARRIER = 4096          # 100 MHz at 30 kHz SCS: NR's OFDM size
 SWEEPS = 14                  # Jacobi sweeps of the served svd_factor stage
 PEAK_F32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
@@ -392,6 +402,19 @@ def card_line() -> str:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(log: str, source: str) -> list:
+    """The ``-Xptxas -v`` lines of one source in the build log: each
+    entry's name, its registers, shared memory and spills."""
+    keep, out = False, []
+    for line in log.splitlines():
+        if line.startswith("=="):
+            keep = line.strip() == f"== {source}"
+        elif keep and ("registers" in line or "spill" in line
+                       or "Compiling entry" in line):
+            out.append(line.strip())
+    return out
 
 
 def clocks_line() -> str:
@@ -922,6 +945,24 @@ def main():
             print("  " + line.strip())
 
     kern = {k.name: k for k in common.KERNELS}
+    # K7 by size: its plan (the shared memory is dynamic, so not in
+    # ptxas's lines) and the registers and spills of the instance it runs
+    # (fft_kernel<log2 n, depth> on the warp route, fft_wide_kernel<log2
+    # n> past it)
+    ptxas = ptxas_lines(common.build_info["log"], "fft.cu")
+    print("K7 plans (fft.cu, -Xptxas -v):", flush=True)
+    for log_n in range(1, int(math.log2(F.MAX_POINTS)) + 1):
+        plan = F.fft_plan(2 ** log_n)
+        entry = (f"fft_wide_kernelILi{log_n}EE" if plan.wide else
+                 f"fft_kernelILi{log_n}ELi{plan.depth}EE")
+        at = next(i for i, line in enumerate(ptxas) if entry in line)
+        print(f"  n={plan.n:<5} {plan.threads} threads x {plan.points} "
+              f"points, stages {plan.stages}, {plan.rows} rows a CTA, "
+              f"{plan.depth} staged batches a warp, shared memory "
+              f"{plan.smem_bytes} bytes; {ptxas[at + 1]}; "
+              f"{ptxas[at + 2].removeprefix('ptxas info    : ')}",
+              flush=True)
+
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_fused,
              "qr_solve_blocked": pp.qr_solve_blocked_fused,
@@ -1217,6 +1258,23 @@ def main():
         if not (torch.equal(re, torch.ones_like(re))
                 and torch.equal(im, torch.zeros_like(im))):
             failures.append(f"fft: unit impulse nf={nf} not all ones")
+    # K7 bit for bit: its stages round every product and sum as the plain
+    # version does (the PUSCH DAG's stacked layout, a carrier's rows of the
+    # largest registered size and of its OFDM size, the smallest size)
+    for key, label, args in (
+            ("pusch_fft", f"{LANES} x {SLOT_SIZES[-1] + 4} rows of {NFFT}",
+             slot_case("pusch_fft", rng, LANES, SLOT_SIZES[-1])),
+            ("fft", f"{LANES} rows of {NFFT_MAX}",
+             (rand(rng, LANES, NFFT_MAX), rand(rng, LANES, NFFT_MAX))),
+            ("fft", f"{LANES} rows of {NFFT_CARRIER}",
+             (rand(rng, LANES, NFFT_CARRIER),
+              rand(rng, LANES, NFFT_CARRIER))),
+            ("fft", f"{LANES} rows of 2",
+             (rand(rng, LANES, 2), rand(rng, LANES, 2)))):
+        equal = torch.equal(fused[key](*args), plain[key](*args))
+        print(f"  {key:<22} {label:<28} bit for bit: {equal}", flush=True)
+        if not equal:
+            failures.append(f"{key} {label}: not bit for bit")
 
     # ---- the mid-range path: K10/K11, and K1-K4 past shared memory ----
     print("mid-range path (n = 128-511):", flush=True)
@@ -2040,9 +2098,10 @@ def main():
                        lambda taps=taps: fir_case(rng, FIR_OUTPUTS, taps),
                        "fir") for taps in FIR_TAPS]
         if name == "fft":
-            cases.append((f"nf={NFFT_MAX}", None, None, LANES,
-                          lambda: (rand(rng, LANES, NFFT_MAX),
-                                   rand(rng, LANES, NFFT_MAX)), "fft"))
+            cases += [(f"nf={nf}", None, None, LANES,
+                       lambda nf=nf: (rand(rng, LANES, nf),
+                                      rand(rng, LANES, nf)), "fft")
+                      for nf in (NFFT_MAX, NFFT_CARRIER)]
         for n, m, form in MID_TIMES.get(name, ()):
             cases.append((f"n={n}" + (f" {form}" if form else ""), n, form,
                           LANES, lambda n=n, m=m: mid_case(key, LANES, n, m),
@@ -2114,6 +2173,9 @@ def main():
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
+                "hbm_share": nbytes / (ms * 1e-3) / PEAK_HBM_BYTES,
+                "library_hbm_share": (nbytes / (lib_ms * 1e-3)
+                                      / PEAK_HBM_BYTES if lib_ms else None),
                 "library_syncs": syncs(lib) if lib else None,
                 "clocks": clocks})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
@@ -2122,6 +2184,9 @@ def main():
                   + (f"  library {lib_ms:.4f} ms" if lib_ms else "")
                   + ("  (library syncs the host)"
                      if sweep[-1]["library_syncs"] else "")
+                  + (f"  of 3.35 TB/s: kernel {sweep[-1]['hbm_share']:.3f}"
+                     f" library {sweep[-1]['library_hbm_share']:.3f}"
+                     if name == "fft" else "")
                   + (f"  clocks (sm, max sm, temperature, power draw) "
                      f"{clocks}" if clocks else ""),
                   flush=True)

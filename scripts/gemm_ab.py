@@ -25,15 +25,10 @@ in turn order.
 """
 import argparse
 import json
-import statistics
-import subprocess
-import sys
-import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-import chip_smoke as CS  # noqa: E402  (the shapes, peaks and card line)
+import ab_turns as AB  # the turns and the timing helpers
+import chip_smoke as CS  # the shapes, peaks and card line (on AB's path)
 
 
 def one_turn(tree: Path, reps: int) -> dict:
@@ -41,54 +36,15 @@ def one_turn(tree: Path, reps: int) -> dict:
     import importlib
 
     import torch
-    sys.path.insert(0, str(tree))
-    import repro_torch
-    if not Path(repro_torch.__file__).resolve().is_relative_to(tree):
-        raise RuntimeError(f"repro_torch imported from "
-                           f"{repro_torch.__file__}, not from {tree}")
+    AB.import_tree(tree)
     from repro_torch.kernels import common
     KG = importlib.import_module("repro_torch.kernels.gemm")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     common.load_library()
-    log, keep = common.build_info["log"].splitlines(), False
-    ptxas = []
-    for line in log:
-        if line.startswith("=="):
-            keep = line.strip() == "== gemm.cu"
-        elif keep and ("registers" in line or "spill" in line
-                       or "Compiling entry" in line):
-            ptxas.append(line.strip())
     kern = next(k for k in common.KERNELS if k.name == "gemm")
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-
-    def timed(fn):
-        torch.cuda._sleep(1_000_000)    # the host enqueues before start
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
-
-    def median_ms(fn):
-        fn()
-        return statistics.median(timed(fn) for _ in range(reps))
-
-    def device_kernels(fn):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return [(e.name[:60], e.time_range.elapsed_us())
-                for e in prof.events() if e.device_type == DeviceType.CUDA]
-
+    median_ms = AB.cold_timer(dev, reps)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = []
@@ -112,47 +68,29 @@ def one_turn(tree: Path, reps: int) -> dict:
                      "matmul_ms": median_ms(lambda: torch.matmul(x, y)),
                      "bound_ms": bound, "rel_err": err,
                      "launches": forms[0], "launches_tc": forms[1],
-                     "device_us": device_kernels(
+                     "device_us": AB.device_kernels(
                          lambda: KG.gemm_fused(x, y))})
         del x, y, got, want
     return {"tree": str(tree), "card": CS.card_line(),
             "clocks": CS.clocks_line(),
-            "build_s": common.build_info["seconds"], "ptxas": ptxas,
+            "build_s": common.build_info["seconds"],
+            "ptxas": CS.ptxas_lines(common.build_info["log"], "gemm.cu"),
             "rows": rows}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", action="append", required=True,
-                    help="NAME=PATH of a src directory (one or two)")
-    ap.add_argument("--order", default=None)
+    AB.add_tree_arguments(ap)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    trees = dict(t.split("=", 1) for t in args.tree)
+    trees, order = AB.trees_and_order(ap, args)
     if args.turn:
         print(json.dumps(one_turn(Path(trees[args.turn]).resolve(),
                                   args.reps)), flush=True)
         return
-    order = args.order or ("ABBA" if len(trees) == 2 else "A")
-    if not 1 <= len(trees) <= 2 or set(order) - set("AB"[:len(trees)]):
-        ap.error("give one or two --tree and an --order of their letters")
-    names = list(trees)
-    summary = {name: [] for name in names}
-    for turn in order:
-        name = names["AB".index(turn)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, __file__, "--turn", name,
-             "--reps", str(args.reps)]
-            + [f"--tree={t}" for t in args.tree],
-            capture_output=True, text=True)
-        if proc.returncode:
-            sys.stderr.write(proc.stdout + proc.stderr)
-            sys.exit(f"gemm_ab: the turn of {name} failed")
-        reading = json.loads(proc.stdout.strip().splitlines()[-1])
-        reading["seconds"] = time.perf_counter() - t0
-        print(json.dumps({"turn": name, **reading}), flush=True)
+    summary = {name: [] for name in trees}
+    for name, reading in AB.run_turns(__file__, args, trees, order,
+                                      ["--reps", str(args.reps)]):
         summary[name].append({f"{'x'.join(map(str, r['shape']))} "
                               f"{r['dtype']}": (r["ms"], r["matmul_ms"])
                               for r in reading["rows"]})

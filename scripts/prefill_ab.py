@@ -22,14 +22,10 @@ with each tree's readings in turn order.
 import argparse
 import json
 import statistics
-import subprocess
-import sys
-import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-import chip_smoke as CS  # noqa: E402  (the timing helpers and batch size)
+import ab_turns as AB  # the turns
+import chip_smoke as CS  # the timing helpers and batch size (on AB's path)
 
 
 def one_turn(tree: Path, archs, seqs, reps: int, windows: int) -> dict:
@@ -37,11 +33,7 @@ def one_turn(tree: Path, archs, seqs, reps: int, windows: int) -> dict:
     import dataclasses
 
     import torch
-    sys.path.insert(0, str(tree))
-    import repro_torch
-    if not Path(repro_torch.__file__).resolve().is_relative_to(tree):
-        raise RuntimeError(f"repro_torch imported from "
-                           f"{repro_torch.__file__}, not from {tree}")
+    AB.import_tree(tree)
     from repro_torch.configs import get_config
     from repro_torch.kernels import common
     from repro_torch.models import transformer as MT
@@ -77,42 +69,26 @@ def one_turn(tree: Path, archs, seqs, reps: int, windows: int) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", action="append", required=True,
-                    help="NAME=PATH of a src directory (give two)")
+    AB.add_tree_arguments(ap, order_default="ABBA")
     ap.add_argument("--arch", action="append")
     ap.add_argument("--seqs", default="512,128")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--windows", type=int, default=3)
-    ap.add_argument("--order", default="ABBA")
-    ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     archs = args.arch or ["phi4-mini-3.8b", "zamba2-2.7b", "xlstm-125m"]
     seqs = [int(s) for s in args.seqs.split(",")]
-    trees = dict(t.split("=", 1) for t in args.tree)
+    trees, order = AB.trees_and_order(ap, args, pairs_only=True)
     if args.turn:
         print(json.dumps(one_turn(Path(trees[args.turn]).resolve(), archs,
                                   seqs, args.reps, args.windows)),
               flush=True)
         return
-    if len(trees) != 2 or set(args.order) - {"A", "B"}:
-        ap.error("give two --tree and an --order of A and B")
-    names = list(trees)
-    summary = {name: [] for name in names}
-    for turn in args.order:
-        name = names["AB".index(turn)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, __file__, "--turn", name, "--seqs", args.seqs,
-             "--reps", str(args.reps), "--windows", str(args.windows)]
-            + [f"--tree={t}" for t in args.tree]
-            + [f"--arch={a}" for a in archs],
-            capture_output=True, text=True)
-        if proc.returncode:
-            sys.stderr.write(proc.stdout + proc.stderr)
-            sys.exit(f"prefill_ab: the turn of {name} failed")
-        reading = json.loads(proc.stdout.strip().splitlines()[-1])
-        reading["seconds"] = time.perf_counter() - t0
-        print(json.dumps({"turn": name, **reading}), flush=True)
+    summary = {name: [] for name in trees}
+    forward = ["--seqs", args.seqs, "--reps", str(args.reps),
+               "--windows", str(args.windows)] \
+        + [f"--arch={a}" for a in archs]
+    for name, reading in AB.run_turns(__file__, args, trees, order,
+                                      forward):
         summary[name].append({
             arch: {s: (r["wall_ms"], r["busy_ms"]) for s, r in rows.items()}
             for arch, rows in reading["archs"].items()})

@@ -6,8 +6,8 @@ nothing here imports it or ``jax``.  Layout mirrors ``repro``:
   kernels/    registry (KernelSpec / Variant / Coalescer), oracles, the
               CUDA kernel loader, the primitive kernels' wrappers and
               the ``ops`` API over them
-  csrc/       the hand-written Hopper kernels (K1-K17, K19), built at
-              first use
+  csrc/       the hand-written Hopper kernels (K1-K21), built at first
+              use
   pipelines/  fused solver chains, the DAG stages and the unfused
               baselines: kernel wrappers + plain versions
   serve/      SolverMux serving stack (scheduler, served DAGs, cost

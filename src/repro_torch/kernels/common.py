@@ -203,7 +203,9 @@ def load_library() -> ctypes.CDLL:
 class CudaKernel:
     """One hand-written kernel of the shared library: its C entry point
     ``symbol(<pointers and sizes>..., stream) -> cudaError_t``, its
-    shared-memory query ``<prefix>_smem(dims...) -> size_t`` and, for a
+    shared-memory query ``<prefix>_smem(dims...) -> size_t`` (None where
+    the wrapper's plan holds the bytes and passes them as the one dim,
+    as K7's does) and, for a
     kernel with a global form (K1-K4), its work-buffer query
     ``work_symbol(dims...) -> size_t`` (floats per lane).
 
@@ -221,7 +223,7 @@ class CudaKernel:
     name the CUDA source and the TPU kernel it ports."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
-                 smem_symbol: str, smem_args: int, source: str,
+                 smem_symbol: str | None, smem_args: int, source: str,
                  replaces: str, work_symbol: str | None = None):
         self.name = name
         self.symbol = symbol
@@ -251,7 +253,8 @@ class CudaKernel:
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            self._smem_fn = self._query(lib, self.smem_symbol)
+            self._smem_fn = (self._query(lib, self.smem_symbol)
+                             if self.smem_symbol else int)
             if self.work_symbol:
                 self._work_fn = self._query(lib, self.work_symbol)
             self._fn = fn

@@ -5,8 +5,12 @@ permutation and the twiddle factors are host-precomputed *stream tables*
 (the REVEL analog: the control core issues one stream command per stage;
 the pattern state machines do the rest).  The stage loop is an ordered
 dependence chain — stage s+1 consumes everything stage s produced — so
-it stays inside one kernel (``csrc/fft.cu``, K7) with the row in shared
-memory throughout.
+it stays inside one kernel (``csrc/fft.cu``, K7).  The kernel holds a row
+in the registers of the threads of one warp (:func:`fft_plan`): the
+first stages run inside each thread, one exchange through shared memory
+regroups the row, and the last stages run inside each thread again.
+Past 1024 points a row spans a CTA, and its stages run four at a time
+in registers between trips through shared memory.
 
 Twiddle storage is CHUNKED: stage ``s`` only has ``2**s`` distinct
 twiddles (w_span^off for off < span/2), so the table packs stage ``s``
@@ -15,12 +19,14 @@ Butterfly partners and per-stage twiddle offsets are recomputed from the
 butterfly index with shift/mask arithmetic.  The kernel, the plain
 version and the reference read the same float32 table, built in float64
 on the host (:func:`fft_tables`), so all three multiply by identical
-twiddles.
+twiddles, and the kernel rounds each product and sum as the plain
+version does: the two agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,15 +58,85 @@ def fft_tables(n: int):
 
 
 @functools.lru_cache(maxsize=32)
+def _host_tables(n: int):
+    """:func:`fft_tables`, built once per size."""
+    return fft_tables(n)
+
+
+@functools.lru_cache(maxsize=32)
 def _device_tables(n: int, device: torch.device):
     """:func:`fft_tables` as tensors on ``device`` (built once per size
     and device)."""
-    return tuple(torch.from_numpy(t).to(device) for t in fft_tables(n))
+    return tuple(torch.from_numpy(t).to(device) for t in _host_tables(n))
 
 
 def _check_size(name: str, n: int) -> None:
     if n < 2 or n & (n - 1):
         raise ValueError(f"{name}: n = {n} is not a power of two >= 2")
+
+
+# The kernel's plans, its one owner (csrc/fft.cu compiles a template
+# instance a size and depth and takes the rest from here).  Up to WARP *
+# WARP points a row lies within one warp (the warp route): CTAs of at most
+# CTA_THREADS threads (fft.cu's launch bounds); from STAGED_POINTS a warp
+# keeps STAGED_DEPTH batches of rows in flight, staged in shared memory by
+# cp.async, and below that a thread loads its points straight into
+# registers (depth 0: 1.3 % faster at the PUSCH DAG's 64 points, PERF.md).
+# Past WARP * WARP points a row spans a CTA of n / WIDE_POINTS threads (the
+# wide route), at most 1024 of them, so rows of up to MAX_POINTS.
+WARP = 32
+CTA_THREADS = 128
+STAGED_POINTS = 256
+STAGED_DEPTH = 2
+WIDE_POINTS = 16
+MAX_POINTS = WIDE_POINTS * 1024
+
+
+class FftPlan(NamedTuple):
+    """How K7 lays an ``n``-point row on the card (``csrc/fft.cu``):
+    ``threads`` T a row, ``points`` P = n / T a thread, the ``stages``
+    each pass runs in registers (between two passes the row goes through
+    shared memory), ``rows`` a CTA, the ``depth`` of staged batches a
+    warp (0: loaded straight into registers), and ``smem_bytes`` a CTA.
+    The warp route (T <= 32): two passes (log2 P, log2 T) and one
+    exchange, in row slots of ``n + T`` floats each plane (the staged
+    row, then its exchange, padded by a float a P block): ``depth``
+    slots a row where staged, one where not, none where a thread holds
+    the row.  The wide route: passes of up to four stages, both planes
+    of the row in shared memory, ``depth`` 0."""
+    n: int
+    threads: int
+    points: int
+    stages: tuple[int, ...]
+    rows: int
+    depth: int
+    smem_bytes: int
+
+    @property
+    def wide(self) -> bool:
+        return self.threads > WARP
+
+
+@functools.lru_cache(maxsize=None)
+def fft_plan(n: int) -> FftPlan:
+    """The plan of an ``n``-point row: T = 2**floor(log2(n) / 2) threads
+    of P = n / T points up to WARP * WARP points, n / WIDE_POINTS threads
+    of WIDE_POINTS past that.  Refuses rows past :data:`MAX_POINTS`."""
+    _check_size("fft", n)
+    if n > MAX_POINTS:
+        raise ValueError(f"fft: K7 runs rows of at most {MAX_POINTS} "
+                         f"points on the card, not {n}")
+    log_n = n.bit_length() - 1
+    if n <= WARP * WARP:
+        t = 1 << (log_n // 2)
+        rows = CTA_THREADS // t
+        depth = STAGED_DEPTH if n >= STAGED_POINTS else 0
+        slots = depth * rows if depth else rows if t > 1 else 0
+        return FftPlan(n, t, n // t, (log_n - log_n // 2, log_n // 2),
+                       rows, depth, 4 * 2 * slots * (n + t))
+    lp = WIDE_POINTS.bit_length() - 1
+    stages = tuple(min(lp, log_n - lp * k) for k in range(-(-log_n // lp)))
+    return FftPlan(n, n // WIDE_POINTS, WIDE_POINTS, stages, 1, 0, 4 * 2 * n)
 
 
 def fft_plain(x_re: torch.Tensor, x_im: torch.Tensor):
@@ -94,8 +170,8 @@ def fft_plain(x_re: torch.Tensor, x_im: torch.Tensor):
 
 _KERNEL = CudaKernel(
     "fft", "fft_f32",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4,
-    "fft_smem", 1,
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8,
+    None, 1,
     source="src/repro_torch/csrc/fft.cu",
     replaces="src/repro/kernels/fft.py:90 fft_pallas")
 
@@ -106,18 +182,25 @@ def launch_fft(x_re: torch.Tensor, x_im: torch.Tensor, out_re: int,
     ``(r // group) * group_stride + (r % group) * N`` floats from the
     ``out_re`` / ``out_im`` addresses (see ``csrc/fft.cu``)."""
     rows, n = x_re.shape
-    _check_size("fft", n)
-    rev, wr, wi = _device_tables(n, x_re.device)
+    plan = fft_plan(n)
+    if plan.depth and (x_re.data_ptr() % 16 or x_im.data_ptr() % 16):
+        x_re, x_im = x_re.clone(), x_im.clone()   # 16-byte cp.async copies
+    _, wr, wi = _device_tables(n, x_re.device)
+    _, host_wr, host_wi = _host_tables(n)
     if rows:
-        _KERNEL.launch(x_re.device, (n,), x_re.data_ptr(), x_im.data_ptr(),
-                       rev.data_ptr(), wr.data_ptr(), wi.data_ptr(), out_re,
-                       out_im, rows, n, group, group_stride)
+        _KERNEL.launch(x_re.device, (plan.smem_bytes,),
+                       x_re.data_ptr(), x_im.data_ptr(), wr.data_ptr(),
+                       wi.data_ptr(), host_wr.ctypes.data,
+                       host_wi.ctypes.data, out_re, out_im, rows, n,
+                       plan.threads, plan.rows, plan.depth, plan.smem_bytes,
+                       group, group_stride)
 
 
 def fft_fused(x_re: torch.Tensor, x_im: torch.Tensor):
     """(B, N) re/im float32 planes -> (re, im) of the DFT, N a power of
-    two >= 2.  K7 on a CUDA tensor (one launch, every row's stages in
-    shared memory), its plain version on a CPU one."""
+    two >= 2 (at most :data:`MAX_POINTS` on the card).  K7 on a CUDA
+    tensor (one launch, every row's stages in registers, :func:`fft_plan`),
+    its plain version on a CPU one."""
     dev = check_f32("fft", x_re, x_im)
     if x_re.dim() != 2 or x_im.shape != x_re.shape:
         raise ValueError(f"fft: shapes {tuple(x_re.shape)}, "

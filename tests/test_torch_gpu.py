@@ -12,14 +12,17 @@ the smoke model's prefill on K20 (every bf16 launch in the tensor-core
 form) and the decode golden replay on the card; K21 at its registry
 case and at zamba2-2.7b's and xlstm-125m's prefill shapes, and the
 hybrid and xLSTM smoke prefills with their exact K21 and K20 launch
-counts.
+counts; K7 equal to its plain version bit for bit at every size from 2
+to 16384 points (the warp route up to 1024, the wide route past it), at
+the PUSCH DAG's rows in the stacked layout and on non-finite inputs.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-(``-k flash`` for K20's cases alone, ``-k gemm`` for K18's.)
+(``-k flash`` for K20's cases alone, ``-k gemm`` for K18's, ``-k fft``
+for K7's.)
 """
 import importlib
 import json
@@ -189,6 +192,104 @@ def test_fft_kernel_matches_plain_version(hopper, n):
     for g, w in zip(tfft.fft_fused(*args), tfft.fft_plain(*args)):
         assert_close(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-3,
                      name=f"fft n={n}")
+
+
+FFT_SIZES = [2 ** k for k in range(1, 15)]
+PUSCH_LANES, PUSCH_ANTENNAS = 3276, 36     # a carrier's lanes, n = 32 + 4
+
+
+def _fft_rows(seed, shape, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device) for _ in range(2))
+
+
+def _equal_nan_where_nan(got, want):
+    """Bit for bit where ``want`` is a number, NaN where it is NaN."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) \
+        and torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("rows", [1, 7, 3276])
+@pytest.mark.parametrize("n", FFT_SIZES)
+def test_fft_kernel_equals_plain_bit_for_bit(hopper, n, rows):
+    """K7's stages in registers round every product and sum as the plain
+    version does: equal, not close, at every size it compiles."""
+    xr, xi = _fft_rows(n + rows, (rows, n), hopper)
+    before = _launches("fft")
+    got = tfft.fft_fused(xr, xi)
+    torch.cuda.synchronize()
+    assert _launches("fft") == before + 1
+    for g, w in zip(got, tfft.fft_plain(xr, xi)):
+        assert torch.equal(g, w), f"fft n={n} rows={rows}"
+
+
+def test_fft_kernel_equals_plain_bit_for_bit_at_the_pusch_rows(hopper):
+    """The DAG's shape: 3276 x 36 rows of 64 points."""
+    xr, xi = _fft_rows(64, (PUSCH_LANES * PUSCH_ANTENNAS, 64), hopper)
+    before = _launches("fft")
+    got = tfft.fft_fused(xr, xi)
+    torch.cuda.synchronize()
+    assert _launches("fft") == before + 1
+    for g, w in zip(got, tfft.fft_plain(xr, xi)):
+        assert torch.equal(g, w)
+
+
+def test_pusch_fft_equals_plain_bit_for_bit_in_the_stacked_layout(hopper):
+    """pusch_fft_fused writes the (B, 2, A, 64) planes in place."""
+    xr, xi = _fft_rows(65, (PUSCH_LANES, PUSCH_ANTENNAS, 64), hopper)
+    before = _launches("fft")
+    got = tp.pusch_fft_fused(xr, xi)
+    torch.cuda.synchronize()
+    assert _launches("fft") == before + 1
+    assert got.shape == (PUSCH_LANES, 2, PUSCH_ANTENNAS, 64)
+    assert torch.equal(got, tp.pusch_fft_plain(xr, xi))
+
+
+@pytest.mark.parametrize("n", [2, 64, 1024, 4096])
+def test_fft_kernel_spreads_non_finite_inputs_as_plain(hopper, n):
+    """inf and NaN inputs (the table's exact 1 and 0 multiplied too):
+    the kernel's output is the plain version's, NaN where NaN."""
+    xr, xi = _fft_rows(n + 1, (6, n), hopper)
+    xr[0, 1] = float("inf")
+    xi[1, n - 1] = float("nan")
+    xr[2, 0], xi[2, 0] = float("-inf"), float("inf")
+    xr[3] = float("inf")
+    before = _launches("fft")
+    got = tfft.fft_fused(xr, xi)
+    torch.cuda.synchronize()
+    assert _launches("fft") == before + 1
+    want = tfft.fft_plain(xr, xi)
+    assert any(torch.isnan(w).any() for w in want)
+    for g, w in zip(got, want):
+        assert _equal_nan_where_nan(g, w)
+        assert torch.equal(g[5], w[5])            # a clean row untouched
+
+
+@pytest.mark.parametrize("n", [2, 64, 1024, 4096])
+def test_fft_kernel_takes_rows_off_16_byte_alignment(hopper, n):
+    """Rows that start 4 bytes past an allocation: staged rows (cp.async
+    copies 16 bytes) are copied to an aligned tensor first; rows loaded
+    straight into registers are read where they are."""
+    flat = _fft_rows(n + 2, (3 * n + 1,), hopper)
+    xr, xi = (f[1:].view(3, n) for f in flat)
+    assert xr.data_ptr() % 16 and xi.data_ptr() % 16
+    before = _launches("fft")
+    got = tfft.fft_fused(xr, xi)
+    torch.cuda.synchronize()
+    assert _launches("fft") == before + 1
+    for g, w in zip(got, tfft.fft_plain(xr, xi)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [2 * tfft.MAX_POINTS, 48])
+def test_fft_kernel_refuses_rows_past_its_plans(hopper, n):
+    """A row no plan covers is refused before any launch."""
+    before = _launches("fft")
+    with pytest.raises(ValueError):
+        tfft.fft_fused(*_fft_rows(0, (2, n), hopper))
+    assert _launches("fft") == before
 
 
 @pytest.mark.parametrize("name", ["svd", "svd_factor"])
