@@ -12,7 +12,9 @@ Phases, each fatal on failure:
                K7's plan at each size (threads a row, points a thread,
                stages a pass, rows a CTA, staged batches a warp, shared
                memory) and its instance's -Xptxas -v registers and
-               spills;
+               spills; the plan of each K1-K3 global row (threads,
+               panel width, shared memory) and the -Xptxas -v registers
+               and spills of the global instances the plans run;
   3. kernels — K1-K21 held against their plain PyTorch versions
                and the oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
@@ -29,9 +31,15 @@ Phases, each fatal on failure:
                The mid-range path: the blocked K10/K11 at n = 128 and
                256 with both panel widths at B = 3276, and K1-K4 on lanes
                past shared memory (their global form, K3 also at n =
-               512 as the HBM-scale mix sends it); where both forms
-               fit, the shared form against the plain version and the
-               global form equal to it bit for bit; K10/K11 at panel
+               512 as the HBM-scale mix sends it, K1 at n = 1024 as the
+               demoted 1024 bucket sends it); where both forms fit
+               (K1 at n = 97, 128, 200, K2 at 100, 128, K3 at 90, 96,
+               K4 at 128), the shared form against the plain version
+               and the global form equal to it bit for bit, and K1's
+               global form at n = 200 at panel widths 1, 8, 16, 32 and
+               64 on lanes with a rank-deficient pivot inside a later
+               panel and NaN in the upper triangle, each equal to the
+               shared form bit for bit; K10/K11 at panel
                widths that are not multiples of 32 (bs = 16 at n = 128,
                48 at n = 192).  The HBM-scale path: the tiled K12-K14 at
                n = 512 (B = 3276) and n = 1024 (B = 264, a carrier's
@@ -261,18 +269,39 @@ BASELINE_LAUNCHES = {"cholesky_solve": {"cholesky": 1, "trisolve": 2},
                      "qr_solve": {"qr": 1, "trisolve": 1},
                      "mmse_equalize": {"cholesky": 1, "trisolve": 2}}
 DSP_LAUNCHES = {"cholesky": 1, "trisolve": 2, "fft": 1, "fir": 1, "svd": 1}
-# kernel -> its mid-range timing rows at B = LANES: (n, m or None for
-# n + 4, the form a two-form kernel must run); K2 at n = 128 is the
-# shared form the mid-range mix runs beside its global form at n = 256
-MID_TIMES = {"cholesky_solve": ((250, None, "global"),),
-             "cholesky_solve_blocked": ((128, None, None),
-                                        (256, None, None)),
-             "mmse_equalize": ((128, None, "shared"),
-                               (256, None, "global")),
-             "mmse_equalize_split": ((128, None, "global"),
-                                     (256, None, "global")),
-             "qr_solve": ((250, 254, "global"),),
-             "qr_solve_blocked": ((128, None, None), (256, None, None))}
+# kernel -> its mid-range and HBM-scale timing rows: (n, m or None for
+# n + 4, the form a two-form kernel must run, lanes); K2 at n = 128 is
+# the shared form the mid-range mix runs beside its global form at n =
+# 256; K1 at n = 1024 is the demoted 1024 bucket's rung and K3 at n = 512
+# the HBM-scale mix's split-complex jobs, at B = 264 as TILED_CASES
+MID_TIMES = {"cholesky_solve": ((250, None, "global", LANES),
+                                (1024, None, "global", 264)),
+             "cholesky_solve_blocked": ((128, None, None, LANES),
+                                        (256, None, None, LANES)),
+             "mmse_equalize": ((128, None, "shared", LANES),
+                               (256, None, "global", LANES)),
+             "mmse_equalize_split": ((128, None, "global", LANES),
+                                     (256, None, "global", LANES),
+                                     (512, None, "global", 264)),
+             "qr_solve": ((250, 254, "global", LANES),),
+             "qr_solve_blocked": ((128, None, None, LANES),
+                                  (256, None, None, LANES))}
+# The cases of K1-K3's panel chain (their global form), whose inputs come
+# from a generator of their own so that every other check keeps its
+# inputs: K1 past shared memory at n = 1024 (a demoted 1024 tiled
+# bucket's rung); sizes where both forms fit that no panel width tiles (K1
+# at 97 and 200, K2 at 100, K3 at 90: a 180 x 180 system), the global form
+# bit for bit the shared one; K1's global form at n = 200 at each panel
+# width (ragged last panels at 8 and 16; 1 is the per-column chain) on
+# deficient and poisoned lanes
+PANEL_GLOBAL_CASES = (("cholesky_solve", 1024, None),)
+PANEL_BIT_SIZES = (("cholesky_solve", 97), ("cholesky_solve", 200),
+                   ("mmse_equalize", 100), ("mmse_equalize_split", 90))
+PANEL_WIDTHS = (1, 8, 16, 32, 64)
+# the sources of K1-K3, whose global instances (<true>) run the panel chain
+GLOBAL_SOURCES = {"cholesky_solve": "cholesky_solve.cu",
+                  "mmse_equalize": "mmse_equalize.cu",
+                  "mmse_equalize_split": "mmse_equalize_split.cu"}
 TILED_TIMES = ("cholesky_solve_tiled", "qr_solve_tiled",
                "mmse_equalize_tiled")
 # the LM paths at full published width (float32 weights, bfloat16
@@ -922,6 +951,7 @@ def main():
     from repro_torch import kernels as K
     from repro_torch import pipelines as pp
     KC = importlib.import_module("repro_torch.kernels.cholesky")
+    KCS = importlib.import_module("repro_torch.pipelines.cholesky_solve")
     from repro_torch.kernels import common, ref
     F = importlib.import_module("repro_torch.kernels.fft")
     KF = importlib.import_module("repro_torch.kernels.fir")
@@ -962,6 +992,36 @@ def main():
               f"{plan.smem_bytes} bytes; {ptxas[at + 1]}; "
               f"{ptxas[at + 2].removeprefix('ptxas info    : ')}",
               flush=True)
+
+    def global_plan(name, shapes):
+        """The panel chain's plan of a K1-K3 global launch at per-lane
+        ``shapes`` (K1: A, B; K2: H, y; K3: Hr, Hi, yr, yi)."""
+        if name == "cholesky_solve":
+            return pp.chol_panel_plan(shapes[0][-1], shapes[1][-1])
+        n = shapes[0][-1]
+        return pp.chol_panel_plan(
+            2 * n if name == "mmse_equalize_split" else n, shapes[-1][-1])
+
+    # K1-K3's global rows: the plan each runs and the registers and
+    # spills of the global instance (<true>) of each source
+    print("K1-K3 global plans (chol_panels.cuh, -Xptxas -v):", flush=True)
+    for name, source in GLOBAL_SOURCES.items():
+        ptxas = ptxas_lines(common.build_info["log"], source)
+        at = next(i for i, line in enumerate(ptxas)
+                  if f"{name}_kernelILb1E" in line)
+        print(f"  {name}<true>: {ptxas[at + 1]}; "
+              f"{ptxas[at + 2].removeprefix('ptxas info    : ')}",
+              flush=True)
+        rows_ = sorted({n for key, n, _ in GLOBAL_CASES + PANEL_GLOBAL_CASES
+                        if key == name}
+                       | {n for n, _, form, _ in MID_TIMES.get(name, ())
+                          if form == "global"})
+        for n in rows_:
+            plan = global_plan(name, ((n + 4, n), (n + 4, 2)) if name !=
+                               "cholesky_solve" else ((n, n), (n, 2)))
+            print(f"    n={n:<5} {plan.threads} threads, panels of "
+                  f"{plan.bs}, shared memory {plan.smem_bytes} bytes",
+                  flush=True)
 
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_fused,
@@ -1104,31 +1164,33 @@ def main():
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    pgen = torch.Generator(device=dev)     # the panel chain's cases
+    pgen.manual_seed(1)
 
-    def grand(*shape):
+    def grand(*shape, g=None):
         """Standard normal float32 made on the card from a seeded
-        generator: the mid-range cases are too large to make on the
-        host in time."""
-        return torch.randn(shape, generator=gen, device=dev)
+        generator (``gen`` unless ``g``): the mid-range cases are too
+        large to make on the host in time."""
+        return torch.randn(shape, generator=g or gen, device=dev)
 
-    def mid_case(key, b, n, m=None):
+    def mid_case(key, b, n, m=None, g=None):
         """Per-lane shapes of the mid-range and HBM-scale slot mixes
         (build_slot_jobs at n >= 128: m = n + 4, k = 2, k = 1 for QR),
-        made on the card;
+        made on the card from ``grand``'s generator ``g``;
         Cholesky systems are X X^T + n I as sample_spd makes them."""
         m = n + 4 if m is None else m
+        r = lambda *s: grand(*s, g=g)     # noqa: E731
         if key.startswith("cholesky_solve"):
-            x = grand(b, n, n)
+            x = r(b, n, n)
             a = torch.baddbmm(n * torch.eye(n, device=dev), x,
                               x.transpose(-1, -2))
-            return a, grand(b, n, 2)
+            return a, r(b, n, 2)
         if key.startswith("qr_solve"):
-            return grand(b, m, n), grand(b, m, 1)
+            return r(b, m, n), r(b, m, 1)
         if key == "mmse_equalize_split":
-            return grand(b, m, n), grand(b, m, n), grand(b, m, 2), \
-                grand(b, m, 2)
+            return r(b, m, n), r(b, m, n), r(b, m, 2), r(b, m, 2)
         if key.startswith("mmse_equalize"):
-            return grand(b, m, n), grand(b, m, 2)
+            return r(b, m, n), r(b, m, 2)
         raise KeyError(key)
 
     def slot_case(key, rng, b, n):
@@ -1284,10 +1346,11 @@ def main():
             for bs in (32, 64):
                 check(key, args, f"B={LANES} n={n} bs={bs}", bs=bs)
             del args
-    for key, n, m in GLOBAL_CASES:
+    for key, n, m, g in ([(*c, gen) for c in GLOBAL_CASES]
+                         + [(*c, pgen) for c in PANEL_GLOBAL_CASES]):
         k = kern[key]
         before = k.launches_global
-        check(key, mid_case(key, CHECK_LANES, n, m),
+        check(key, mid_case(key, CHECK_LANES, n, m, g=g),
               f"global B={CHECK_LANES} n={n}",
               rtol=None if key == "cholesky_solve"
               else MID_RTOL if n < 512 else TILED_RTOL)
@@ -1296,9 +1359,11 @@ def main():
     # sizes where both forms fit: the shared form against the plain
     # version (K2 at n = 128 is the mid-range mix's own shape), then the
     # global form against the shared one, bit for bit
-    for key, n in (("cholesky_solve", 128), ("mmse_equalize", 128),
-                   ("mmse_equalize_split", 96), ("qr_solve", 128)):
-        args = mid_case(key, CHECK_LANES, n)
+    for (key, n), g in ([(c, gen) for c in (
+            ("cholesky_solve", 128), ("mmse_equalize", 128),
+            ("mmse_equalize_split", 96), ("qr_solve", 128))]
+            + [(c, pgen) for c in PANEL_BIT_SIZES]):
+        args = mid_case(key, CHECK_LANES, n, g=g)
         before = kern[key].launches_global
         shared, _ = check(key, args, f"shared B={CHECK_LANES} n={n}",
                           rtol=None if key == "cholesky_solve" else MID_RTOL)
@@ -1311,6 +1376,40 @@ def main():
               f"bit: {same}", flush=True)
         if not same:
             failures.append(f"{key} n={n}: global form != shared form")
+    # K1 at n = 200 on a rank-deficient pivot inside a later panel (lane
+    # 1: row 150 of X copies row 3) and NaN in the upper triangle (lane
+    # 2): the shared form, the poisoned lane equal to its clean copy, and
+    # the global form at each panel width equal to it bit for bit
+    n = 200
+    x = grand(64, n, n + 16, g=pgen)
+    x[1, 150] = x[1, 3]
+    a = torch.bmm(x, x.transpose(-1, -2))
+    a[2:] += n * torch.eye(n, device=dev)
+    a[0] += n * torch.eye(n, device=dev)
+    clean = a.clone()
+    iu = torch.triu_indices(n, n, offset=1, device=dev)
+    a[2, iu[0], iu[1]] = float("nan")
+    rhs = grand(64, n, 2, g=pgen)
+    shared = pp.cholesky_solve_fused(a, rhs)
+    same = (torch.equal(shared, pp.cholesky_solve_fused(clean, rhs))
+            and bool(torch.isfinite(shared).all()))
+    print(f"  {'cholesky_solve':<22} n={n} deficient pivot 150, NaN "
+          f"upper: finite, poisoned == clean bit for bit: {same}",
+          flush=True)
+    if not same:
+        failures.append(f"cholesky_solve n={n}: poisoned lane leaked")
+    for bs in PANEL_WIDTHS:
+        before = kern["cholesky_solve"].launches_global
+        with global_form(common), patched(KCS, "PANEL_WIDTH", bs):
+            glob = pp.cholesky_solve_fused(a, rhs)
+        same = (torch.equal(shared, glob) and
+                kern["cholesky_solve"].launches_global == before + 1)
+        print(f"  {'cholesky_solve':<22} n={n} bs={bs}: global form == "
+              f"shared form bit for bit: {same}", flush=True)
+        if not same:
+            failures.append(f"cholesky_solve n={n} bs={bs}: global form "
+                            f"!= shared form")
+    del x, a, clean, rhs, shared, glob
 
     a, rhs = mid_case("cholesky_solve", 4, 128)
     clean = pp.cholesky_solve_blocked_fused(a, rhs, bs=32)
@@ -2102,9 +2201,10 @@ def main():
                        lambda nf=nf: (rand(rng, LANES, nf),
                                       rand(rng, LANES, nf)), "fft")
                       for nf in (NFFT_MAX, NFFT_CARRIER)]
-        for n, m, form in MID_TIMES.get(name, ()):
-            cases.append((f"n={n}" + (f" {form}" if form else ""), n, form,
-                          LANES, lambda n=n, m=m: mid_case(key, LANES, n, m),
+        for n, m, form, b in MID_TIMES.get(name, ()):
+            cases.append((f"n={n}" + (f" {form}" if form else "")
+                          + (f" B={b}" if b != LANES else ""), n, form, b,
+                          lambda n=n, m=m, b=b: mid_case(key, b, n, m),
                           key))
         if name in TILED_TIMES:
             cases += [(f"n={n} B={b}", n, None, b,
@@ -2177,7 +2277,10 @@ def main():
                 "library_hbm_share": (nbytes / (lib_ms * 1e-3)
                                       / PEAK_HBM_BYTES if lib_ms else None),
                 "library_syncs": syncs(lib) if lib else None,
-                "clocks": clocks})
+                "clocks": clocks,
+                "plan": (list(global_plan(name, shapes))
+                         if form == "global" and name in GLOBAL_SOURCES
+                         else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
@@ -2188,7 +2291,9 @@ def main():
                      f" library {sweep[-1]['library_hbm_share']:.3f}"
                      if name == "fft" else "")
                   + (f"  clocks (sm, max sm, temperature, power draw) "
-                     f"{clocks}" if clocks else ""),
+                     f"{clocks}" if clocks else "")
+                  + (f"  plan (threads, bs, smem) {sweep[-1]['plan']}"
+                     if sweep[-1]["plan"] else ""),
                   flush=True)
             del args
         if key in SLOT_KEYS:

@@ -18,21 +18,27 @@
 //
 // A lane larger than shared memory (n > 168 at m = n + 4, k = 2) takes
 // the global form: H and y are read in place from device memory, G lives
-// in a per-lane slice of a work buffer and x is solved in place in X; only
-// the chain's per-step scratch stays in shared memory.  Both forms run the
-// same source, so they agree bit for bit where both fit.
+// in a per-lane slice of a work buffer and x is solved in place in X.
+// After the same Gram stage it runs the panel chain (chol_panels.cuh): a
+// panel of bs columns is factored in shared memory and the trailing lower
+// triangle of G updated once a panel from register tiles, each product
+// subtracted in chol_chain's order, so the global form equals the shared
+// form bit for bit at every panel width.  The plan (threads, bs, shared
+// memory) is pipelines/cholesky_solve.py's chol_panel_plan.
 #include <cstddef>
 
+#include "chol_panels.cuh"
 #include "lane_common.cuh"
 
 namespace repro_torch {
 namespace {
 
 template <bool kGlobal>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGlobal ? kPanelThreads : kThreads,
+                                  kGlobal ? kPanelMinBlocks : 0)
 mmse_equalize_kernel(const float* __restrict__ H, const float* __restrict__ Y,
                      float* __restrict__ X, float* __restrict__ work, int m,
-                     int n, int k, float sigma2, float eps) {
+                     int n, int k, int bs, float sigma2, float eps) {
   extern __shared__ float smem[];
   const size_t lane = blockIdx.x;
   const float* hl = H + lane * m * n;
@@ -41,13 +47,12 @@ mmse_equalize_kernel(const float* __restrict__ H, const float* __restrict__ Y,
   const float* yv;            // m * k
   float* g;                   // n * n
   float* rhs;                 // n * k
-  float* col;                 // n
+  float* col = nullptr;       // n (the shared form's chain scratch)
   if (kGlobal) {              // H and y read in place, x solved in place
     h = hl;
     yv = yl;
     g = work + lane * n * n;
     rhs = X + lane * n * k;
-    col = smem;
   } else {
     float* hs = smem;
     float* ys = hs + m * n;
@@ -60,8 +65,6 @@ mmse_equalize_kernel(const float* __restrict__ H, const float* __restrict__ Y,
     col = rhs + n * k;
     __syncthreads();
   }
-  float* yk = col + n;        // k
-  float* thresh = yk + k;     // 1
   // Gram region: lower triangle of H^T H + sigma2 I
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
     const int i = e / n;
@@ -80,8 +83,12 @@ mmse_equalize_kernel(const float* __restrict__ H, const float* __restrict__ Y,
     rhs[e] = s;
   }
   __syncthreads();
-  chol_chain(g, rhs, n, k, eps, col, yk, thresh);
-  if (!kGlobal) {
+  if (kGlobal) {
+    chol_chain_panels(g, g, rhs, n, k, bs, eps, smem);
+  } else {
+    float* yk = col + n;      // k
+    float* thresh = yk + k;   // 1
+    chol_chain(g, rhs, n, k, eps, col, yk, thresh);
     float* xl = X + lane * n * k;
     for (int e = threadIdx.x; e < n * k; e += blockDim.x) xl[e] = rhs[e];
   }
@@ -101,16 +108,24 @@ size_t mmse_equalize_smem(int m, int n, int k) {
   return repro_torch::smem_bytes(m, n, k);
 }
 
+// Dynamic shared memory one lane of the global form needs at panel width bs.
+size_t mmse_equalize_global_smem(int m, int n, int k, int bs) {
+  return repro_torch::chol_panel_smem_bytes(n, k, bs);
+}
+
 // Floats of work buffer one lane of the global form needs (G).
 size_t mmse_equalize_work(int m, int n, int k) {
   return static_cast<size_t>(n) * n;
 }
 
 // h (batch, m, n), y (batch, m, k) -> x (batch, n, k), all float32.
-// work: null for the shared form, else batch * mmse_equalize_work floats.
+// work: null for the shared form, else batch * mmse_equalize_work floats
+// and the global form's plan (pipelines/cholesky_solve.py chol_panel_plan
+// at (n, k): threads, panel width bs, smem bytes), refused unless it is
+// one the panel chain was compiled for.  The shared form ignores the plan.
 int mmse_equalize_f32(const void* h, const void* y, void* x, void* work,
                       int batch, int m, int n, int k, float sigma2, float eps,
-                      void* stream) {
+                      int threads, int bs, int smem, void* stream) {
   using namespace repro_torch;
   const auto s = static_cast<cudaStream_t>(stream);
   const float* hf = static_cast<const float*>(h);
@@ -118,16 +133,19 @@ int mmse_equalize_f32(const void* h, const void* y, void* x, void* work,
   float* xf = static_cast<float*>(x);
   float* wf = static_cast<float*>(work);
   if (work) {
-    mmse_equalize_kernel<true>
-        <<<batch, kThreads, sizeof(float) * (n + k + 1), s>>>(
-            hf, yf, xf, wf, m, n, k, sigma2, eps);
+    if (!chol_panel_plan_ok(n, k, threads, bs, smem))
+      return cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(mmse_equalize_kernel<true>, smem);
+    if (err != cudaSuccess) return err;
+    mmse_equalize_kernel<true><<<batch, threads, smem, s>>>(
+        hf, yf, xf, wf, m, n, k, bs, sigma2, eps);
     return cudaGetLastError();
   }
-  const size_t smem = smem_bytes(m, n, k);
-  cudaError_t err = allow_smem(mmse_equalize_kernel<false>, smem);
+  const size_t smem_shared = smem_bytes(m, n, k);
+  cudaError_t err = allow_smem(mmse_equalize_kernel<false>, smem_shared);
   if (err != cudaSuccess) return err;
-  mmse_equalize_kernel<false><<<batch, kThreads, smem, s>>>(
-      hf, yf, xf, wf, m, n, k, sigma2, eps);
+  mmse_equalize_kernel<false><<<batch, kThreads, smem_shared, s>>>(
+      hf, yf, xf, wf, m, n, k, 0, sigma2, eps);
   return cudaGetLastError();
 }
 

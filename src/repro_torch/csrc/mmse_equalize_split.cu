@@ -23,26 +23,31 @@
 // A lane larger than shared memory (n > 96 at m = n + 4, k = 2) takes the
 // global form: the four planes are read in place from device memory, the
 // 2n x 2n embedding lives in a per-lane slice of a work buffer (1 MB a
-// lane at n = 256) and x is solved in place in X; only the chain's
-// per-step scratch stays in shared memory.  Both forms run the same
-// source, so they agree bit for bit where both fit.  At n = 256 the chain
-// is 1,024 barrier-separated steps over a matrix that no longer fits in
-// L2 across the resident lanes, so it runs at device-memory speed.
+// lane at n = 256) and x is solved in place in X.  After the same Gram
+// stage it runs the panel chain (chol_panels.cuh): a panel of bs columns
+// is factored in shared memory and the embedding's trailing lower
+// triangle updated once a panel from register tiles, each product
+// subtracted in chol_chain's order, so the global form equals the shared
+// form bit for bit at every panel width.  The plan (threads, bs, shared
+// memory) is pipelines/cholesky_solve.py's chol_panel_plan at (2n, k).
 #include <cstddef>
 
+#include "chol_panels.cuh"
 #include "lane_common.cuh"
 
 namespace repro_torch {
 namespace {
 
 template <bool kGlobal>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGlobal ? kPanelThreads : kThreads,
+                                  kGlobal ? kPanelMinBlocks : 0)
 mmse_equalize_split_kernel(const float* __restrict__ Hr,
                            const float* __restrict__ Hi,
                            const float* __restrict__ Yr,
                            const float* __restrict__ Yi,
                            float* __restrict__ X, float* __restrict__ work,
-                           int m, int n, int k, float sigma2, float eps) {
+                           int m, int n, int k, int bs, float sigma2,
+                           float eps) {
   extern __shared__ float smem[];
   const int n2 = 2 * n;
   const size_t lane = blockIdx.x;
@@ -52,7 +57,7 @@ mmse_equalize_split_kernel(const float* __restrict__ Hr,
   const float* yi;             // m * k
   float* g;                    // 2n * 2n
   float* rhs;                  // 2n * k
-  float* col;                  // 2n
+  float* col = nullptr;        // 2n (the shared form's chain scratch)
   if (kGlobal) {               // planes read in place, x solved in place
     hr = Hr + lane * m * n;
     hi = Hi + lane * m * n;
@@ -60,7 +65,6 @@ mmse_equalize_split_kernel(const float* __restrict__ Hr,
     yi = Yi + lane * m * k;
     g = work + lane * n2 * n2;
     rhs = X + lane * n2 * k;
-    col = smem;
   } else {
     float* hrs = smem;
     float* his = hrs + m * n;
@@ -83,8 +87,6 @@ mmse_equalize_split_kernel(const float* __restrict__ Hr,
     col = rhs + n2 * k;
     __syncthreads();
   }
-  float* yk = col + n2;        // k
-  float* thresh = yk + k;      // 1
   // split Gram region: Gr into both diagonal blocks (lower triangles), and
   // C = Hr^T Hi, each entry once, into the upper-right block, which the
   // chain never reads
@@ -126,8 +128,12 @@ mmse_equalize_split_kernel(const float* __restrict__ Hr,
     g[(i + n) * n2 + j] = g[i * n2 + (j + n)] - g[j * n2 + (i + n)];
   }
   __syncthreads();
-  chol_chain(g, rhs, n2, k, eps, col, yk, thresh);
-  if (!kGlobal) {
+  if (kGlobal) {
+    chol_chain_panels(g, g, rhs, n2, k, bs, eps, smem);
+  } else {
+    float* yk = col + n2;      // k
+    float* thresh = yk + k;    // 1
+    chol_chain(g, rhs, n2, k, eps, col, yk, thresh);
     float* xl = X + lane * n2 * k;
     for (int e = threadIdx.x; e < n2 * k; e += blockDim.x) xl[e] = rhs[e];
   }
@@ -149,6 +155,12 @@ size_t mmse_equalize_split_smem(int m, int n, int k) {
   return repro_torch::smem_bytes(m, n, k);
 }
 
+// Dynamic shared memory one lane of the global form needs at panel width bs
+// (the panel chain on the 2n x 2n embedding).
+size_t mmse_equalize_split_global_smem(int m, int n, int k, int bs) {
+  return repro_torch::chol_panel_smem_bytes(2 * n, k, bs);
+}
+
 // Floats of work buffer one lane of the global form needs (the 2n x 2n
 // embedding).
 size_t mmse_equalize_split_work(int m, int n, int k) {
@@ -157,11 +169,14 @@ size_t mmse_equalize_split_work(int m, int n, int k) {
 
 // hr, hi (batch, m, n), yr, yi (batch, m, k) -> x (batch, 2n, k), float32.
 // work: null for the shared form, else batch * mmse_equalize_split_work
-// floats.
+// floats and the global form's plan (pipelines/cholesky_solve.py
+// chol_panel_plan at (2n, k): threads, panel width bs, smem bytes),
+// refused unless it is one the panel chain was compiled for.  The shared
+// form ignores the plan.
 int mmse_equalize_split_f32(const void* hr, const void* hi, const void* yr,
                             const void* yi, void* x, void* work, int batch,
                             int m, int n, int k, float sigma2, float eps,
-                            void* stream) {
+                            int threads, int bs, int smem, void* stream) {
   using namespace repro_torch;
   const auto s = static_cast<cudaStream_t>(stream);
   const float* hrf = static_cast<const float*>(hr);
@@ -171,16 +186,20 @@ int mmse_equalize_split_f32(const void* hr, const void* hi, const void* yr,
   float* xf = static_cast<float*>(x);
   float* wf = static_cast<float*>(work);
   if (work) {
-    mmse_equalize_split_kernel<true>
-        <<<batch, kThreads, sizeof(float) * (2 * n + k + 1), s>>>(
-            hrf, hif, yrf, yif, xf, wf, m, n, k, sigma2, eps);
+    if (!chol_panel_plan_ok(2 * n, k, threads, bs, smem))
+      return cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(mmse_equalize_split_kernel<true>, smem);
+    if (err != cudaSuccess) return err;
+    mmse_equalize_split_kernel<true><<<batch, threads, smem, s>>>(
+        hrf, hif, yrf, yif, xf, wf, m, n, k, bs, sigma2, eps);
     return cudaGetLastError();
   }
-  const size_t smem = smem_bytes(m, n, k);
-  cudaError_t err = allow_smem(mmse_equalize_split_kernel<false>, smem);
+  const size_t smem_shared = smem_bytes(m, n, k);
+  cudaError_t err =
+      allow_smem(mmse_equalize_split_kernel<false>, smem_shared);
   if (err != cudaSuccess) return err;
-  mmse_equalize_split_kernel<false><<<batch, kThreads, smem, s>>>(
-      hrf, hif, yrf, yif, xf, wf, m, n, k, sigma2, eps);
+  mmse_equalize_split_kernel<false><<<batch, kThreads, smem_shared, s>>>(
+      hrf, hif, yrf, yif, xf, wf, m, n, k, 0, sigma2, eps);
   return cudaGetLastError();
 }
 

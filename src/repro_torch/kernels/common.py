@@ -288,9 +288,10 @@ class CudaKernel:
         memory the global form works in (its pointer is among ``args``):
         the buffer from :meth:`work_buffer` or, for a kernel whose global
         form works in its own output (K15-K17), that output.  Raise
-        when the lane does not fit in shared memory (in the global form
-        only the per-step scratch is shared), the card is not a Hopper,
-        or the launch is refused.  Never synchronises."""
+        when the lane does not fit in shared memory (the global form's
+        shared memory is its C entry's to check: per-step scratch, or
+        K1-K3's panel plan), the card is not a Hopper, or the launch is
+        refused.  Never synchronises."""
         fn = self._bind()
         if not on_hopper(device):
             raise RuntimeError(

@@ -36,7 +36,8 @@ version (``*_plain``), and a device-taking public wrapper.  The kernel
 registry (``repro_torch.kernels``) binds them to the serving stack.
 """
 from repro_torch.pipelines.cholesky_solve import (  # noqa: F401
-    TILED_VMEM_BUDGET_BYTES, cholesky_solve, cholesky_solve_blocked,
+    TILED_VMEM_BUDGET_BYTES, chol_panel_plan, cholesky_solve,
+    cholesky_solve_blocked,
     cholesky_solve_blocked_fits, cholesky_solve_blocked_fused,
     cholesky_solve_blocked_plain, cholesky_solve_fused, cholesky_solve_plain, cholesky_solve_tiled,
     cholesky_solve_tiled_fused, cholesky_solve_tiled_plain,
@@ -63,6 +64,7 @@ from repro_torch.pipelines.qr_solve import (  # noqa: F401
 
 __all__ = [
     "cholesky_solve", "cholesky_solve_fused", "cholesky_solve_plain",
+    "chol_panel_plan",
     "mmse_equalize", "mmse_equalize_fused", "mmse_equalize_plain",
     "mmse_equalize_split", "mmse_equalize_split_fused",
     "mmse_equalize_split_plain", "expand_complex_channel",

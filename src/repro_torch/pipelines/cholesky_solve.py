@@ -24,6 +24,7 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -126,9 +127,71 @@ def cholesky_solve_plain(a: torch.Tensor, b: torch.Tensor, *,
     return cholesky_chain_plain(a, b, eps=eps)
 
 
+# ---------------------------------------------------------------------------
+# The global forms' panel chain (csrc/chol_panels.cuh), shared by K1-K3
+# ---------------------------------------------------------------------------
+
+PANEL_THREADS = 256
+PANEL_WIDTH = 32             # the widest panel a plan picks (the C entries
+                             # take 1 to 64)
+# Dynamic shared memory one block may use on sm_90 (227 KB).  The panel's
+# budget is the card's own limit, never common.MAX_SMEM_BYTES, which
+# decides the form and which tests lower to 0 to force the global form.
+PANEL_SMEM_BYTES = 232448
+# Shared memory of one SM on sm_90 (228 KB), of which each resident block
+# also holds 1 KB.  A plan narrows its panel until three lanes share an
+# SM: at n = 1024 a 32-wide panel (135 KB) leaves one lane an SM waiting
+# at the panel's barriers, and a 16-wide one reads faster (PERF.md, PR 22).
+SM_SMEM_BYTES = 233472
+PANEL_SMEM_TARGET = SM_SMEM_BYTES // 3 - 1024
+
+
+class CholPanelPlan(NamedTuple):
+    """How the global form of K1-K3 runs the chain on an n x n system with
+    m right-hand sides: ``threads`` a CTA, panels of ``bs`` columns, and
+    ``smem_bytes`` of dynamic shared memory a CTA."""
+    threads: int
+    bs: int
+    smem_bytes: int
+
+
+def chol_panel_smem(n: int, m: int, bs: int) -> int:
+    """Shared memory of the panel chain: the panel (n x (bs + 1) floats),
+    y's panel rows (bs x m), the threshold's per-warp partials and the
+    threshold (``chol_panel_smem_bytes`` in ``csrc/chol_panels.cuh``)."""
+    return 4 * (n * (bs + 1) + bs * m + 2 * (PANEL_THREADS // 32) + 1)
+
+
+def chol_panel_plan(n: int, m: int) -> CholPanelPlan:
+    """The one plan of the global forms' panel chain at (n, m): panels of
+    :data:`PANEL_WIDTH` columns, halved until a lane takes at most
+    :data:`PANEL_SMEM_TARGET` of shared memory (down to 1 column, the
+    per-column chain).  The width never changes a result.  Raises where
+    the plan does not fit the card's :data:`PANEL_SMEM_BYTES`."""
+    if n < 1 or m < 1:
+        raise ValueError(f"chol_panel_plan: n = {n}, m = {m}")
+    bs = PANEL_WIDTH
+    while bs > 1 and chol_panel_smem(n, m, bs) > PANEL_SMEM_TARGET:
+        bs //= 2
+    smem = chol_panel_smem(n, m, bs)
+    if smem > PANEL_SMEM_BYTES:
+        raise ValueError(f"chol_panel_plan: n = {n}, m = {m} at panel "
+                         f"width {bs} needs {smem} bytes of shared memory, "
+                         f"past the card's {PANEL_SMEM_BYTES}")
+    return CholPanelPlan(PANEL_THREADS, bs, smem)
+
+
+def global_plan_args(work: torch.Tensor | None, n: int, m: int) -> tuple:
+    """The plan arguments of a K1-K3 launch: the chain's plan at (n, m)
+    for the global form (``work`` given), zeros for the shared form,
+    which ignores them."""
+    return tuple(chol_panel_plan(n, m)) if work is not None else (0, 0, 0)
+
+
 _KERNEL = CudaKernel(
     "cholesky_solve", "cholesky_solve_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float]
+    + [ctypes.c_int] * 3,
     "cholesky_solve_smem", 2,
     source="src/repro_torch/csrc/cholesky_solve.cu",
     replaces="src/repro/pipelines/cholesky_solve.py:113 "
@@ -141,7 +204,8 @@ def cholesky_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
     """Solve a @ x = b for SPD a. a: (B,N,N), b: (B,N,M) -> x (B,N,M),
     float32 and contiguous.  K1 on a CUDA tensor (one launch, factor and
     both substitutions fused per lane; a lane past shared memory in a
-    device work buffer), its plain version on a CPU one.
+    device work buffer, factored by panels as :func:`chol_panel_plan`
+    says), its plain version on a CPU one.
 
     bfloat16 a and b are widened to float32, solved as above and the
     answer rounded back to bfloat16: bf16 in, bf16 out, as the
@@ -163,7 +227,7 @@ def cholesky_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
         work = _KERNEL.work_buffer(dev, bsz, n, m)
         _KERNEL.launch(dev, (n, m), a.data_ptr(), b.data_ptr(),
                        x.data_ptr(), data_ptr(work), bsz, n, m, eps,
-                       work=work)
+                       *global_plan_args(work, n, m), work=work)
     return x
 
 

@@ -12,7 +12,8 @@ received symbols y (m x k):
 which is the real-valued LMMSE estimate x = (H^H H + s I)^{-1} H^H y.
 Nothing leaves shared memory between the four stages
 (``csrc/mmse_equalize.cu``, K2); a lane too large for shared memory
-keeps G in a device work buffer and reads H and y in place.
+keeps G in a device work buffer, reads H and y in place and factors G
+by panels (:func:`~repro_torch.pipelines.cholesky_solve.chol_panel_plan`).
 
 Complex channels are handled two ways:
 
@@ -42,6 +43,7 @@ from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
 from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
                                                   cholesky_chain_plain,
                                                   cholesky_solve_unfused,
+                                                  global_plan_args,
                                                   tiled_admit,
                                                   tiled_chain_plain)
 
@@ -92,7 +94,8 @@ def mmse_equalize_split_plain(hr: torch.Tensor, hi: torch.Tensor,
 
 _KERNEL = CudaKernel(
     "mmse_equalize", "mmse_equalize_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+    + [ctypes.c_int] * 3,
     "mmse_equalize_smem", 3,
     source="src/repro_torch/csrc/mmse_equalize.cu",
     replaces="src/repro/pipelines/mmse.py:78 mmse_equalize_pallas",
@@ -100,7 +103,8 @@ _KERNEL = CudaKernel(
 
 _SPLIT_KERNEL = CudaKernel(
     "mmse_equalize_split", "mmse_equalize_split_f32",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+    + [ctypes.c_int] * 3,
     "mmse_equalize_split_smem", 3,
     source="src/repro_torch/csrc/mmse_equalize_split.cu",
     replaces="src/repro/pipelines/mmse.py:148 mmse_equalize_split_pallas",
@@ -127,7 +131,7 @@ def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
         work = _KERNEL.work_buffer(dev, bsz, m, n, k)
         _KERNEL.launch(dev, (m, n, k), h.data_ptr(), y.data_ptr(),
                        x.data_ptr(), data_ptr(work), bsz, m, n, k, sigma2,
-                       eps, work=work)
+                       eps, *global_plan_args(work, n, k), work=work)
     return x
 
 
@@ -159,7 +163,7 @@ def mmse_equalize_split_fused(hr: torch.Tensor, hi: torch.Tensor,
         _SPLIT_KERNEL.launch(dev, (m, n, k), hr.data_ptr(), hi.data_ptr(),
                              yr.data_ptr(), yi.data_ptr(), x.data_ptr(),
                              data_ptr(work), bsz, m, n, k, sigma2, eps,
-                             work=work)
+                             *global_plan_args(work, 2 * n, k), work=work)
     return x
 
 

@@ -1,6 +1,7 @@
 """The hand-written Hopper kernels (K1-K21) on the card, held against
 their plain PyTorch versions on the same card inputs, K1-K4 and K15-K17
-on lanes past shared memory (their global form), the tiled K12-K14 with
+on lanes past shared memory (their global form; K1-K3's panel chain bit
+for bit their shared form at every panel width), the tiled K12-K14 with
 slabs streamed past shared memory, the served DAGs' golden replay, the
 launch counts of the unfused baselines and the DSP chain, K17 on a wide
 matrix and K1 on bf16, K18 and K20 at their registry cases and the LM
@@ -24,6 +25,7 @@ there is no compute-capability 9.0 card.  On the card:
 (``-k flash`` for K20's cases alone, ``-k gemm`` for K18's, ``-k fft``
 for K7's.)
 """
+import ctypes
 import importlib
 import json
 import pathlib
@@ -408,15 +410,20 @@ def test_blocked_qr_tall_shape_matches_plain_version(hopper):
 
 
 @pytest.mark.parametrize("kernel,n", [("cholesky_solve", 128),
+                                      ("cholesky_solve", 97),
+                                      ("cholesky_solve", 200),
                                       ("mmse_equalize", 128),
+                                      ("mmse_equalize", 100),
                                       ("mmse_equalize_split", 96),
+                                      ("mmse_equalize_split", 90),
                                       ("qr_solve", 128)])
 def test_global_form_equals_shared_form_bit_for_bit(hopper, monkeypatch,
                                                     kernel, n):
     """At a size where a lane fits in shared memory, the shared form
     agrees with the plain version, and the global form (forced by a
-    shared-memory limit of 0) gives its answer bit for bit: the same
-    chain source, the same op order, only the memory differs."""
+    shared-memory limit of 0) gives its answer bit for bit: the same op
+    order, only the memory differs (K1-K3's global form runs the panel
+    chain, whose panels need not tile n)."""
     fused, plain = PAIRS[kernel]
     args = _card_case(hopper, kernel, 64, n, seed=n)
     k = next(k for k in KERNELS if k.name == kernel)
@@ -433,7 +440,80 @@ def test_global_form_equals_shared_form_bit_for_bit(hopper, monkeypatch,
     assert torch.equal(shared, glob)
 
 
+def _panel_width_case(dev, n, b=8):
+    """K1 systems at n whose lanes hold a rank-deficient pivot inside a
+    later panel (lane 1: row 150 of X copies row 3 before X X^T, so pivot
+    150 lies in the fifth 32-wide panel) and NaN in the upper triangle
+    (lane 2), beside well-posed lanes."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((b, n, n + 16)).astype(np.float32)
+    x[1, 150] = x[1, 3]
+    a = x @ x.swapaxes(-1, -2)
+    a[[0] + list(range(2, b))] += n * np.eye(n, dtype=np.float32)
+    iu = np.triu_indices(n, 1)
+    a[2][iu] = np.nan
+    return (torch.from_numpy(a).to(dev),
+            torch.from_numpy(rng.standard_normal((b, n, 2)).astype(
+                np.float32)).to(dev))
+
+
+def test_global_form_bit_for_bit_at_every_panel_width(hopper, monkeypatch):
+    """K1's global form at n = 200 under each panel width bs in {1, 8, 16,
+    32, 64} (1 is the per-column chain; 8 and 16 leave a ragged last
+    panel) gives the shared form's bits, on lanes with a rank-deficient
+    pivot inside a later panel and with NaN in the upper triangle; the
+    poisoned lane solves to its clean copy's bits and every lane stays
+    finite."""
+    n = 200
+    a, b = _panel_width_case(hopper, n)
+    k = next(k for k in KERNELS if k.name == "cholesky_solve")
+    shared = tp.cholesky_solve_fused(a, b)
+    clean = a.clone()
+    clean[2] = torch.tril(a[2]) + torch.tril(a[2], -1).mT
+    assert torch.equal(shared, tp.cholesky_solve_fused(clean, b))
+    assert bool(torch.isfinite(shared).all())
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", 0)
+    C = importlib.import_module("repro_torch.pipelines.cholesky_solve")
+    for bs in (1, 8, 16, 32, 64):
+        monkeypatch.setattr(C, "PANEL_WIDTH", bs)
+        assert tp.chol_panel_plan(n, 2).bs == bs
+        before = k.launches_global
+        glob = tp.cholesky_solve_fused(a, b)
+        torch.cuda.synchronize()
+        assert k.launches_global == before + 1
+        assert torch.equal(shared, glob), f"bs={bs}"
+
+
+def test_global_form_refuses_a_plan_it_was_not_compiled_for(hopper,
+                                                           monkeypatch):
+    """The C entry checks the plan it is given: a panel width past the
+    compiled widest (64), or shared-memory bytes off the formula, raise;
+    its global shared-memory queries are the plan's formula."""
+    a, b = _card_case(hopper, "cholesky_solve", 2, 64, seed=1)
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", 0)
+    C = importlib.import_module("repro_torch.pipelines.cholesky_solve")
+    plan = C.chol_panel_plan(64, 2)
+    with monkeypatch.context() as mp:
+        mp.setattr(C, "PANEL_WIDTH", 128)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tp.cholesky_solve_fused(a, b)
+    with monkeypatch.context() as mp:
+        mp.setattr(C, "chol_panel_plan", lambda n, m: plan._replace(
+            smem_bytes=plan.smem_bytes + 4))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tp.cholesky_solve_fused(a, b)
+    lib = common.load_library()
+    for name, dims in (("cholesky_solve_global_smem", (64, 2)),
+                       ("mmse_equalize_global_smem", (68, 64, 2)),
+                       ("mmse_equalize_split_global_smem", (68, 32, 2))):
+        q = getattr(lib, name)
+        q.restype = ctypes.c_size_t
+        for bs in (1, 16, 32):
+            assert q(*dims, bs) == C.chol_panel_smem(64, 2, bs), name
+
+
 @pytest.mark.parametrize("kernel,n,m", [("cholesky_solve", 250, None),
+                                        ("cholesky_solve", 1024, None),
                                         ("mmse_equalize", 256, None),
                                         ("mmse_equalize_split", 128, None),
                                         ("mmse_equalize_split", 256, None),
