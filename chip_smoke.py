@@ -12,9 +12,10 @@ Phases, each fatal on failure:
                K7's plan at each size (threads a row, points a thread,
                stages a pass, rows a CTA, staged batches a warp, shared
                memory) and its instance's -Xptxas -v registers and
-               spills; the plan of each K1-K3 global row (threads,
-               panel width, shared memory) and the -Xptxas -v registers
-               and spills of the global instances the plans run;
+               spills; the plan of each K1-K4 global row (threads,
+               panel width, K4's tile width, shared memory) and the
+               -Xptxas -v registers and spills of the global instances
+               the plans run, and of K16's warp form;
   3. kernels — K1-K21 held against their plain PyTorch versions
                and the oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
@@ -39,7 +40,12 @@ Phases, each fatal on failure:
                global form at n = 200 at panel widths 1, 8, 16, 32 and
                64 on lanes with a rank-deficient pivot inside a later
                panel and NaN in the upper triangle, each equal to the
-               shared form bit for bit; K10/K11 at panel
+               shared form bit for bit; K4's global form at 132 x 128
+               and 204 x 200 at panel widths 1, 8, 16, 32 and its
+               plan's own on lanes with a duplicated column inside a
+               later panel, an exact zero column and a NaN, each equal
+               to the shared form bit for bit, the lanes beside the NaN
+               equal to their clean batch's; K10/K11 at panel
                widths that are not multiples of 32 (bs = 16 at n = 128,
                48 at n = 192).  The HBM-scale path: the tiled K12-K14 at
                n = 512 (B = 3276) and n = 1024 (B = 264, a carrier's
@@ -50,6 +56,10 @@ Phases, each fatal on failure:
                K17, two right-hand sides for K16) and on one lane past
                shared memory (n = 256, m = 260: the global form), their
                global form equal to the shared one bit for bit at n = 32;
+               K16's warp form (a warp a lane, n <= 32, m <= 8) equal to
+               its CTA form bit for bit at n = 1, 7, 8, 16, 31, 32 and m
+               = 1, 2, 3, 8, both directions, NaN in the unread triangle
+               never leaking;
                K19 at 61,440 outputs (one 0.5 ms slot of one antenna at
                122.88 Msps) with 31 and 65 taps; guard cases (NaN in the
                unread triangle of K15 and K16, m = n + 1 and m = 1 for
@@ -283,7 +293,8 @@ MID_TIMES = {"cholesky_solve": ((250, None, "global", LANES),
              "mmse_equalize_split": ((128, None, "global", LANES),
                                      (256, None, "global", LANES),
                                      (512, None, "global", 264)),
-             "qr_solve": ((250, 254, "global", LANES),),
+             "qr_solve": ((250, 254, "global", LANES),
+                          (1024, 1028, "global", 264)),
              "qr_solve_blocked": ((128, None, None, LANES),
                                   (256, None, None, LANES))}
 # The cases of K1-K3's panel chain (their global form), whose inputs come
@@ -298,6 +309,14 @@ PANEL_GLOBAL_CASES = (("cholesky_solve", 1024, None),)
 PANEL_BIT_SIZES = (("cholesky_solve", 97), ("cholesky_solve", 200),
                    ("mmse_equalize", 100), ("mmse_equalize_split", 90))
 PANEL_WIDTHS = (1, 8, 16, 32, 64)
+# K4's global form (the Householder panel chain) bit for bit its shared
+# form at each panel width, at 132 x 128 (the mid-range check's size) and
+# 204 x 200 (ragged last panels), its lanes from a generator of their own
+QR_PANEL_SIZES = (128, 200)
+QR_PANEL_WIDTHS = (1, 8, 16, 32)
+# K16's warp form against its CTA form: (n, m) of every edge of the warp
+TRI_WARP_NS = (1, 7, 8, 16, 31, 32)
+TRI_WARP_MS = (1, 2, 3, 8)
 # the sources of K1-K3, whose global instances (<true>) run the panel chain
 GLOBAL_SOURCES = {"cholesky_solve": "cholesky_solve.cu",
                   "mmse_equalize": "mmse_equalize.cu",
@@ -952,6 +971,7 @@ def main():
     from repro_torch import pipelines as pp
     KC = importlib.import_module("repro_torch.kernels.cholesky")
     KCS = importlib.import_module("repro_torch.pipelines.cholesky_solve")
+    QS = importlib.import_module("repro_torch.pipelines.qr_solve")
     from repro_torch.kernels import common, ref
     F = importlib.import_module("repro_torch.kernels.fft")
     KF = importlib.import_module("repro_torch.kernels.fir")
@@ -994,8 +1014,10 @@ def main():
               flush=True)
 
     def global_plan(name, shapes):
-        """The panel chain's plan of a K1-K3 global launch at per-lane
-        ``shapes`` (K1: A, B; K2: H, y; K3: Hr, Hi, yr, yi)."""
+        """The panel chain's plan of a K1-K4 global launch at per-lane
+        ``shapes`` (K1: A, B; K2: H, y; K3: Hr, Hi, yr, yi; K4: A, B)."""
+        if name == "qr_solve":
+            return pp.qr_panel_plan(*shapes[0], shapes[1][-1])
         if name == "cholesky_solve":
             return pp.chol_panel_plan(shapes[0][-1], shapes[1][-1])
         n = shapes[0][-1]
@@ -1021,6 +1043,30 @@ def main():
                                "cholesky_solve" else ((n, n), (n, 2)))
             print(f"    n={n:<5} {plan.threads} threads, panels of "
                   f"{plan.bs}, shared memory {plan.smem_bytes} bytes",
+                  flush=True)
+
+    # K4's global rows: the plan each runs and the panel kernel's
+    # registers; K16's warp form, an instance a bound on m
+    ptxas = ptxas_lines(common.build_info["log"], "qr_solve.cu")
+    at = next(i for i, line in enumerate(ptxas)
+              if "qr_solve_panels_kernel" in line)
+    print(f"K4 global plans (qr_panels.cuh, -Xptxas -v): "
+          f"qr_solve_panels_kernel: {ptxas[at + 1]}; "
+          f"{ptxas[at + 2].removeprefix('ptxas info    : ')}", flush=True)
+    for n, m in sorted({(n, m) for key, n, m in GLOBAL_CASES
+                        if key == "qr_solve"}
+                       | {(n, m) for n, m, form, _ in MID_TIMES["qr_solve"]
+                          if form == "global"}):
+        plan = global_plan("qr_solve", ((m, n), (m, 1)))
+        print(f"    {m} x {n}: {plan.threads} threads, panels of "
+              f"{plan.bs}, tiles of {plan.tile}, shared memory "
+              f"{plan.smem_bytes} bytes", flush=True)
+    ptxas = ptxas_lines(common.build_info["log"], "trisolve.cu")
+    for i, line in enumerate(ptxas):
+        if "trisolve_warp_kernel" in line:
+            print(f"  K16 warp form {line.split(chr(39))[1]}: "
+                  f"{ptxas[i + 1]}; "
+                  f"{ptxas[i + 2].removeprefix('ptxas info    : ')}",
                   flush=True)
 
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
@@ -1410,6 +1456,50 @@ def main():
             failures.append(f"cholesky_solve n={n} bs={bs}: global form "
                             f"!= shared form")
     del x, a, clean, rhs, shared, glob
+    # K4 at (n + 4) x n on a duplicated column inside a later panel (lane
+    # 1: column 150, or 3n/4, copies column 3), an exact zero column (lane
+    # 2) and a NaN (lane 3): the shared form finite with the zero column's
+    # component zeroed, the lanes beside the NaN equal to their clean
+    # batch's bit for bit, and the global form at each panel width and at
+    # its plan's own equal to the shared form bit for bit, NaN lane too
+    qgen = torch.Generator(device=dev)
+    qgen.manual_seed(2)
+    for n in QR_PANEL_SIZES:
+        qa = grand(64, n + 4, n, g=qgen)
+        qb = grand(64, n + 4, 1, g=qgen)
+        qa[1, :, min(150, 3 * n // 4)] = qa[1, :, 3]
+        qa[2, :, n // 2] = 0.0
+        clean = qa.clone()
+        qa[3, n // 3, n // 5] = float("nan")
+        shared = pp.qr_solve_fused(qa, qb)
+        keep = [i for i in range(qa.shape[0]) if i != 3]
+        same = (torch.equal(shared[keep], pp.qr_solve_fused(clean, qb)[keep])
+                and bool(torch.isfinite(shared[keep]).all())
+                and torch.equal(shared[2, n // 2],
+                                torch.zeros_like(shared[2, n // 2])))
+        print(f"  {'qr_solve':<22} {n + 4}x{n} duplicated column, zero "
+              f"column, NaN lane: finite, zeroed, the NaN isolated bit "
+              f"for bit: {same}", flush=True)
+        if not same:
+            failures.append(f"qr_solve {n + 4}x{n}: special lanes")
+        for bs in QR_PANEL_WIDTHS + (None,):
+            before = kern["qr_solve"].launches_global
+            with global_form(common), patched(
+                    QS, "QR_PANEL_WIDTH", bs or QS.QR_PANEL_WIDTH):
+                plan = pp.qr_panel_plan(n + 4, n, 1)
+                glob = pp.qr_solve_fused(qa, qb)
+            same = (torch.equal(shared.view(torch.int32),
+                                glob.view(torch.int32))
+                    and (bs is None or plan.bs == bs)
+                    and kern["qr_solve"].launches_global == before + 1)
+            print(f"  {'qr_solve':<22} {n + 4}x{n} "
+                  f"{'bs=' + str(bs) if bs else 'plan ' + str(tuple(plan))}"
+                  f": global form == shared form bit for bit: {same}",
+                  flush=True)
+            if not same:
+                failures.append(f"qr_solve {n + 4}x{n} bs={bs}: global "
+                                f"form != shared form")
+    del qa, qb, clean, shared, glob
 
     a, rhs = mid_case("cholesky_solve", 4, 128)
     clean = pp.cholesky_solve_blocked_fused(a, rhs, bs=32)
@@ -1573,6 +1663,43 @@ def main():
               f"{same}", flush=True)
         if not same:
             failures.append(f"{key} n=32: global form != shared form")
+    # K16's warp form against its CTA form (WARP_MAX_N = 0) bit for bit,
+    # at every edge of the warp, NaN in the triangle neither reads never
+    # leaking (the poisoned solve equals the clean one), and each call
+    # one launch of the form it names
+    tgen = torch.Generator(device=dev)
+    tgen.manual_seed(3)
+    k16 = kern["trisolve"]
+    for lower in (True, False):
+        bad = []
+        for n in TRI_WARP_NS:
+            x = grand(CHECK_LANES, n, n, g=tgen)
+            l = torch.linalg.cholesky(torch.baddbmm(
+                n * torch.eye(n, device=dev), x, x.mT))
+            l = (l if lower else l.mT).contiguous()
+            poisoned = l.clone()
+            idx = torch.triu_indices(n, n, offset=1, device=dev)
+            if not lower:
+                idx = idx.flip(0)
+            poisoned[:, idx[0], idx[1]] = float("nan")
+            for m in TRI_WARP_MS:
+                rhs = grand(CHECK_LANES, n, m, g=tgen)
+                before = (k16.launches, k16.launches_warp)
+                warp = KT.trisolve_fused(poisoned, rhs, lower=lower)
+                clean = KT.trisolve_fused(l, rhs, lower=lower)
+                with patched(KT, "WARP_MAX_N", 0):
+                    cta = KT.trisolve_fused(poisoned, rhs, lower=lower)
+                if not (torch.equal(warp, cta) and torch.equal(warp, clean)
+                        and bool(torch.isfinite(warp).all())
+                        and (k16.launches - before[0],
+                             k16.launches_warp - before[1]) == (3, 2)):
+                    bad.append((n, m))
+        print(f"  {'trisolve':<22} {'lower' if lower else 'upper'} warp "
+              f"form == CTA form bit for bit, NaN unread, at n in "
+              f"{TRI_WARP_NS} x m in {TRI_WARP_MS}: "
+              f"{'all' if not bad else 'not ' + str(bad)}", flush=True)
+        if bad:
+            failures.append(f"trisolve warp form != CTA form at {bad}")
     # guard cases: NaN in the triangle a kernel never reads
     a = torch.from_numpy(sample_spd(rng, 2, 16)).to(dev)
     clean = KC.cholesky_fused(a)
@@ -1808,12 +1935,14 @@ def main():
 
     launches_global = {name: 0 for name in kern}
     launches_tc = {name: 0 for name in kern}
+    launches_warp = {name: 0 for name in kern}
 
     def reset_launches():
         for k in common.KERNELS:
             k.launches = 0
             k.launches_global = 0
             k.launches_tc = 0
+            k.launches_warp = 0
 
     def read_launches(path: str, expect: tuple, expect_global=(),
                       exact: dict | None = None):
@@ -1826,9 +1955,12 @@ def main():
                 if k.launches_global}
         tc = {k.name: k.launches_tc for k in common.KERNELS
               if k.launches_tc}
+        warp = {k.name: k.launches_warp for k in common.KERNELS
+                if k.launches_warp}
         print(f"main-path launches ({path}): {json.dumps(counts)}; "
               f"of them in the global form: {json.dumps(glob)}, in a "
-              f"tensor-core form: {json.dumps(tc)}", flush=True)
+              f"tensor-core form: {json.dumps(tc)}, in a warp form: "
+              f"{json.dumps(warp)}", flush=True)
         if not all(counts[name] for name in expect):
             fail(f"a kernel of the {path} path never launched: {counts}")
         if not all(glob.get(name) for name in expect_global):
@@ -1840,6 +1972,7 @@ def main():
             launches[name] += c
             launches_global[name] += glob.get(name, 0)
             launches_tc[name] += tc.get(name, 0)
+            launches_warp[name] += warp.get(name, 0)
 
     reset_launches()
     for argv in (["--slots", "8", "--lanes", "8", "--sizes", "8,12",
@@ -2279,7 +2412,8 @@ def main():
                 "library_syncs": syncs(lib) if lib else None,
                 "clocks": clocks,
                 "plan": (list(global_plan(name, shapes))
-                         if form == "global" and name in GLOBAL_SOURCES
+                         if form == "global" and (name in GLOBAL_SOURCES
+                                                  or name == "qr_solve")
                          else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
@@ -2292,8 +2426,9 @@ def main():
                      if name == "fft" else "")
                   + (f"  clocks (sm, max sm, temperature, power draw) "
                      f"{clocks}" if clocks else "")
-                  + (f"  plan (threads, bs, smem) {sweep[-1]['plan']}"
-                     if sweep[-1]["plan"] else ""),
+                  + (f"  plan (threads, bs, "
+                     f"{'tile, ' if name == 'qr_solve' else ''}smem) "
+                     f"{sweep[-1]['plan']}" if sweep[-1]["plan"] else ""),
                   flush=True)
             del args
         if key in SLOT_KEYS:
@@ -2306,6 +2441,7 @@ def main():
             "replaces": k.replaces, "launches": launches[name],
             "launches_global": launches_global[name],
             "launches_tc": launches_tc[name],
+            "launches_warp": launches_warp[name],
             "max_abs_err": max_err[name],
             "rtol": RTOLS.get(name, RTOL),
             "lanes": head["lanes"], "shapes": head["shapes"],

@@ -8,30 +8,40 @@
 //
 // What bounds it on an H100: each lane reads m*n + m*k floats and writes
 // n*k; its model work is 2 (m n^2 - n^3/3) + 4 m n k + n^2 k FLOPs.  Both
-// bounds are small; each reflection is three ordered phases (norm and
-// reflector in one warp, the v^T [R | y] dot products, the rank-1 update),
-// so 3 min(n, m-1) + 2n block barriers per lane are what hold it back.
-// The design keeps R, y and the reflector in shared memory, touches only
-// rows k.. of each step (the reflector is exactly zero above k), and
-// zeroes -- never clamps -- a solution component whose pivot falls below
-// the relative threshold, so a rank-deficient lane stays finite.
+// bounds are small.  The shared form (the lane in shared memory) is held
+// back by its 3 min(n, m-1) + 2n block barriers and by each dot product,
+// a serial FFMA chain over the rows below the reflection.  The design
+// keeps R, y and the reflector in shared memory, touches only rows k.. of
+// each step (the reflector is exactly zero above k), and zeroes -- never
+// clamps -- a solution component whose pivot falls below the relative
+// threshold, so a rank-deficient lane stays finite.
 //
 // A lane larger than shared memory (n >= 238 at m = n + 4, k = 1) takes the
 // global form: R and y live in a per-lane slice of a device work buffer
-// and only the reflector and its dot products stay in shared memory.
-// Both forms run qr_chain, so they agree bit for bit where both fit.
+// and the chain runs by panels (qr_panels.cuh): a panel of bs columns
+// takes its reflections in shared memory and the columns right of it are
+// swept once a panel, a column a thread, in shared memory.  What bounds
+// the global form is each lane's chain of dependent steps (the reflectors'
+// norms and dot products, serial FFMA chains, and the sweeps' loads from
+// shared memory), no longer device memory, which it reads and writes
+// about once a panel.  Both forms compute qr_chain's expressions in its order, so they
+// agree bit for bit where both fit, at every panel and tile width.  The
+// first panel reads A and B themselves, so they are not copied into the
+// work buffer first.  The plan (threads, bs, tile, shared memory) is
+// pipelines/qr_solve.py's qr_panel_plan.
 #include <cstddef>
 
 #include "lane_common.cuh"
+#include "qr_panels.cuh"
 
 namespace repro_torch {
 namespace {
 
-// The Householder least-squares chain of _qr_solve_kernel on one lane:
-// min(n, m-1) reflections applied to R and y, then the guarded back
-// substitution.  r (m x n) and y (m x k) may live in shared or in device
-// memory; v (m), w (n + k) and tau_s (1) are shared scratch.  x is left in
-// y[:n].
+// The Householder least-squares chain of _qr_solve_kernel on one lane in
+// shared memory: min(n, m-1) reflections applied to R and y, then the
+// guarded back substitution.  r (m x n), y (m x k), v (m), w (n + k) and
+// tau_s (1) are shared.  x is left in y[:n].  qr_chain_panels
+// (qr_panels.cuh) computes the same chain on a lane in device memory.
 __device__ inline void qr_chain(float* r, float* y, int m, int n, int k,
                                 float tiny, float* v, float* w,
                                 float* tau_s) {
@@ -39,21 +49,11 @@ __device__ inline void qr_chain(float* r, float* y, int m, int n, int k,
   const int nt = blockDim.x;
   const int nref = m > 1 ? min(n, m - 1) : 0;
   for (int kk = 0; kk < nref; ++kk) {
-    // householder region (warp 0): norm of the masked column, the
-    // sign rule alpha = xk >= 0 ? -norm : norm, v, tau (0 if degenerate)
+    // householder region (warp 0): the norm of the masked column, the
+    // sign rule, v and tau (0 if degenerate)
     if (tid < 32) {
-      float s = 0.0f;
-      for (int i = kk + tid; i < m; i += 32) s += r[i * n + kk] * r[i * n + kk];
-      const float norm = sqrtf(warp_sum(s));
-      const float xk = r[kk * n + kk];
-      const float alpha = xk >= 0.0f ? -norm : norm;
-      for (int i = tid; i < m; i += 32)
-        v[i] = i < kk ? 0.0f : (i == kk ? xk - alpha : r[i * n + kk]);
-      __syncwarp();
-      float s2 = 0.0f;
-      for (int i = kk + tid; i < m; i += 32) s2 += v[i] * v[i];
-      const float vnorm2 = fmaxf(warp_sum(s2), tiny);
-      if (tid == 0) *tau_s = norm < tiny ? 0.0f : 2.0f / vnorm2;
+      const float t = householder(r + kk, n, v, 1, kk, m, tiny);
+      if (tid == 0) *tau_s = t;
     }
     __syncthreads();
     const float tau = *tau_s;
@@ -107,27 +107,16 @@ __device__ inline void qr_chain(float* r, float* y, int m, int n, int k,
   }
 }
 
-template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 qr_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                float* __restrict__ X, float* __restrict__ work, int m, int n,
-                int k, float tiny) {
+                float* __restrict__ X, int m, int n, int k, float tiny) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const size_t lane = blockIdx.x;
-  float* r;                   // m * n
-  float* y;                   // m * k
-  float* v;                   // m: reflector
-  if (kGlobal) {
-    r = work + lane * (m * n + m * k);
-    y = r + m * n;
-    v = smem;
-  } else {
-    r = smem;
-    y = r + m * n;
-    v = y + m * k;
-  }
+  float* r = smem;            // m * n
+  float* y = r + m * n;       // m * k
+  float* v = y + m * k;       // m: reflector
   float* w = v + m;           // n + k: tau * v^T [R | y]
   float* tau_s = w + n + k;   // 1
   for (int e = tid; e < m * n; e += nt) r[e] = A[lane * m * n + e];
@@ -136,6 +125,20 @@ qr_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
   qr_chain(r, y, m, n, k, tiny, v, w, tau_s);
   float* xl = X + lane * n * k;
   for (int e = tid; e < n * k; e += nt) xl[e] = y[e];
+}
+
+// The global form: the lane's [R | y] in its slice of the work buffer.
+__global__ void __launch_bounds__(kQrMaxTile)
+qr_solve_panels_kernel(const float* __restrict__ A,
+                       const float* __restrict__ B, float* __restrict__ X,
+                       float* __restrict__ work, int m, int n, int k, int bs,
+                       int tile, float tiny) {
+  extern __shared__ float smem[];
+  const size_t lane = blockIdx.x;
+  float* r = work + lane * (static_cast<size_t>(m) * n +
+                            static_cast<size_t>(m) * k);
+  qr_chain_panels(A + lane * m * n, B + lane * m * k, r, r + m * n,
+                  X + lane * n * k, m, n, k, bs, tile, tiny, smem);
 }
 
 size_t smem_bytes(int m, int n, int k) {
@@ -157,27 +160,39 @@ size_t qr_solve_work(int m, int n, int k) {
   return static_cast<size_t>(m) * n + static_cast<size_t>(m) * k;
 }
 
+// Dynamic shared memory one lane of the global form needs at panel width
+// bs and tile width tile.
+size_t qr_solve_global_smem(int m, int k, int bs, int tile) {
+  return repro_torch::qr_panel_smem_bytes(m, k, bs, tile);
+}
+
 // a (batch, m, n) with m >= n, b (batch, m, k) -> x (batch, n, k), float32.
-// work: null for the shared form, else batch * qr_solve_work floats.
+// work: null for the shared form, else batch * qr_solve_work floats and the
+// global form's plan (pipelines/qr_solve.py qr_panel_plan: threads, panel
+// width bs, tile width, smem bytes), refused unless it is one the panel
+// chain was compiled for.  The shared form ignores the plan.
 int qr_solve_f32(const void* a, const void* b, void* x, void* work, int batch,
-                 int m, int n, int k, float tiny, void* stream) {
+                 int m, int n, int k, float tiny, int threads, int bs,
+                 int tile, int smem, void* stream) {
   using namespace repro_torch;
   const auto s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
   float* xf = static_cast<float*>(x);
-  float* wf = static_cast<float*>(work);
   if (work) {
-    qr_solve_kernel<true>
-        <<<batch, kThreads, sizeof(float) * (m + n + k + 1), s>>>(
-            af, bf, xf, wf, m, n, k, tiny);
+    if (!qr_panel_plan_ok(m, n, k, threads, bs, tile, smem))
+      return cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(qr_solve_panels_kernel, smem);
+    if (err != cudaSuccess) return err;
+    qr_solve_panels_kernel<<<batch, threads, smem, s>>>(
+        af, bf, xf, static_cast<float*>(work), m, n, k, bs, tile, tiny);
     return cudaGetLastError();
   }
-  const size_t smem = smem_bytes(m, n, k);
-  cudaError_t err = allow_smem(qr_solve_kernel<false>, smem);
+  const size_t smem_shared = smem_bytes(m, n, k);
+  cudaError_t err = allow_smem(qr_solve_kernel, smem_shared);
   if (err != cudaSuccess) return err;
-  qr_solve_kernel<false><<<batch, kThreads, smem, s>>>(af, bf, xf, wf, m, n,
-                                                       k, tiny);
+  qr_solve_kernel<<<batch, kThreads, smem_shared, s>>>(af, bf, xf, m, n, k,
+                                                       tiny);
   return cudaGetLastError();
 }
 

@@ -219,7 +219,8 @@ class CudaKernel:
     a run can show that its path went through the kernel.
     ``launches_global`` counts those of them that ran the global form,
     ``launches_tc`` those that the C entry reports in a tensor-core form
-    (K18's and K20's wrappers count it).  ``source`` and ``replaces``
+    (K18's and K20's wrappers count it), ``launches_warp`` those in K16's
+    warp form (its wrapper counts it).  ``source`` and ``replaces``
     name the CUDA source and the TPU kernel it ports."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
@@ -236,6 +237,7 @@ class CudaKernel:
         self.launches = 0
         self.launches_global = 0
         self.launches_tc = 0
+        self.launches_warp = 0
         self._fn = None
         self._smem_fn = None
         self._work_fn = None

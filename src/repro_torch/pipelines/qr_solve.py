@@ -9,7 +9,8 @@ inductive-consumption ``tau`` edge).  After min(m-1, n) reflections the
 rhs holds Q^T b, and the back substitution on the n x n upper triangle
 of R runs in the same lane, everything in shared memory
 (``csrc/qr_solve.cu``, K4), or in a device work buffer for a lane too
-large for it.
+large for it, by panels as :func:`qr_panel_plan` says
+(``csrc/qr_panels.cuh``).
 
 Pivot guard: a degenerate (zero-norm) column takes tau = 0 (identity
 reflector) and the back substitution zeroes a component whose pivot is
@@ -23,6 +24,7 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,7 +33,8 @@ from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
 from repro_torch.kernels.qr import qr_fused
 from repro_torch.kernels.trisolve import trisolve_fused
-from repro_torch.pipelines.cholesky_solve import block_size, tiled_admit
+from repro_torch.pipelines.cholesky_solve import (PANEL_SMEM_BYTES,
+                                                  block_size, tiled_admit)
 
 DEFAULT_TINY = 1e-20
 
@@ -110,9 +113,73 @@ def qr_solve_plain(a: torch.Tensor, b: torch.Tensor, *,
     return back_substitute_r(r, y, n=n, tiny=tiny)
 
 
+# ---------------------------------------------------------------------------
+# K4's global form: the Householder chain by panels (csrc/qr_panels.cuh)
+# ---------------------------------------------------------------------------
+
+QR_PANEL_WIDTH = 32          # the widest panel a plan picks (the C entry
+                             # takes 1 to 32)
+QR_TILE_WIDTH = 64           # the widest tile of columns right of a panel,
+                             # a thread a column (the C entry takes 1 to 128)
+
+
+class QrPanelPlan(NamedTuple):
+    """How the global form of K4 runs the chain on an m x n lane with k
+    right-hand sides: ``threads`` a CTA (one a tile column, a warp at
+    least), panels of ``bs`` columns, tiles of ``tile`` columns, and
+    ``smem_bytes`` of dynamic shared memory a CTA."""
+    threads: int
+    bs: int
+    tile: int
+    smem_bytes: int
+
+
+def qr_panel_smem(m: int, k: int, bs: int, tile: int) -> int:
+    """Shared memory of the panel chain: one region for the panel (m x
+    (bs + 1) floats), a tile (m x tile) or back substitution's block of
+    R, V (m x (bs + 1)), y's block rows (bs x k), tau and the panel's w
+    (bs each) and the threshold (``qr_panel_smem_bytes`` in
+    ``csrc/qr_panels.cuh``)."""
+    return 4 * (m * (bs + 1) + m * max(bs + 1, tile) + bs * k + 2 * bs + 1)
+
+
+def qr_panel_plan(m: int, n: int, k: int) -> QrPanelPlan:
+    """The one plan of K4's global form at (m, n, k): panels of
+    :data:`QR_PANEL_WIDTH` columns and tiles of :data:`QR_TILE_WIDTH`,
+    both halved together until a lane fits the card's
+    :data:`PANEL_SMEM_BYTES` (the budget is the card's own, never
+    ``common.MAX_SMEM_BYTES``, which picks the form), down to one column
+    each: the per-column chain.  Neither width
+    changes a result.  At 254 x 250 a lane takes 32 and 64 (two lanes
+    share an SM), at 1028 x 1024 16 and 32.  Raises where even that does
+    not fit: past m = 14,500 or so, beyond every lane whose global form
+    took 48 KB or less before the chain ran by panels."""
+    if not (1 <= n <= m and k >= 1):
+        raise ValueError(f"qr_panel_plan: m = {m}, n = {n}, k = {k}")
+    bs, tile = QR_PANEL_WIDTH, QR_TILE_WIDTH
+    while (qr_panel_smem(m, k, bs, tile) > PANEL_SMEM_BYTES
+           and (bs, tile) != (1, 1)):
+        bs, tile = max(bs // 2, 1), max(tile // 2, 1)
+    smem = qr_panel_smem(m, k, bs, tile)
+    if smem > PANEL_SMEM_BYTES:
+        raise ValueError(f"qr_panel_plan: m = {m}, k = {k} at one-column "
+                         f"panels and tiles needs {smem} bytes of shared "
+                         f"memory, past the card's {PANEL_SMEM_BYTES}")
+    return QrPanelPlan(max(32, tile), bs, tile, smem)
+
+
+def qr_plan_args(work: torch.Tensor | None, m: int, n: int,
+                 k: int) -> tuple:
+    """The plan arguments of a K4 launch: the chain's plan at (m, n, k)
+    for the global form (``work`` given), zeros for the shared form,
+    which ignores them."""
+    return tuple(qr_panel_plan(m, n, k)) if work is not None else (0,) * 4
+
+
 _KERNEL = CudaKernel(
     "qr_solve", "qr_solve_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    + [ctypes.c_int] * 4,
     "qr_solve_smem", 3,
     source="src/repro_torch/csrc/qr_solve.cu",
     replaces="src/repro/pipelines/qr_solve.py:100 qr_solve_pallas",
@@ -124,7 +191,8 @@ def qr_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
     """Least squares min ||a @ x - b||. a: (B,M,N) with M >= N,
     b: (B,M,K) -> x: (B,N,K); float32, contiguous.  K4 on a CUDA tensor
     (one launch, Q never formed; a lane past shared memory in a device
-    work buffer), its plain version on a CPU one."""
+    work buffer, by panels as :func:`qr_panel_plan` says), its plain
+    version on a CPU one."""
     dev = check_f32("qr_solve", a, b)
     bsz, m, n = a.shape
     b2, m2, k = b.shape
@@ -138,7 +206,7 @@ def qr_solve_fused(a: torch.Tensor, b: torch.Tensor, *,
         work = _KERNEL.work_buffer(dev, bsz, m, n, k)
         _KERNEL.launch(dev, (m, n, k), a.data_ptr(), b.data_ptr(),
                        x.data_ptr(), data_ptr(work), bsz, m, n, k, tiny,
-                       work=work)
+                       *qr_plan_args(work, m, n, k), work=work)
     return x
 
 

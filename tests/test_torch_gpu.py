@@ -1,7 +1,8 @@
 """The hand-written Hopper kernels (K1-K21) on the card, held against
 their plain PyTorch versions on the same card inputs, K1-K4 and K15-K17
-on lanes past shared memory (their global form; K1-K3's panel chain bit
-for bit their shared form at every panel width), the tiled K12-K14 with
+on lanes past shared memory (their global form; K1-K4's panel chains bit
+for bit their shared forms at every panel width; K16's warp form bit for
+bit its CTA form), the tiled K12-K14 with
 slabs streamed past shared memory, the served DAGs' golden replay, the
 launch counts of the unfused baselines and the DSP chain, K17 on a wide
 matrix and K1 on bf16, K18 and K20 at their registry cases and the LM
@@ -512,6 +513,95 @@ def test_global_form_refuses_a_plan_it_was_not_compiled_for(hopper,
             assert q(*dims, bs) == C.chol_panel_smem(64, 2, bs), name
 
 
+def _bits(t):
+    """A float32 tensor's bits: equal bits are equal values, NaN too."""
+    return t.contiguous().view(torch.int32)
+
+
+def _qr_special_lanes(dev, n, b=8):
+    """K4 lanes at (n + 4) x n: lane 1 has column 150 (or 3n/4) a copy of
+    column 3 (a deficient pivot inside a later panel), lane 2 an exact
+    zero column, lane 3 a NaN; the others Gaussian."""
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((b, n + 4, n)).astype(np.float32)
+    a[1, :, min(150, 3 * n // 4)] = a[1, :, 3]
+    a[2, :, n // 2] = 0.0
+    a[3, n // 3, n // 5] = np.nan
+    return (torch.from_numpy(a).to(dev),
+            torch.from_numpy(rng.standard_normal((b, n + 4, 1)).astype(
+                np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("n", [128, 200])
+def test_qr_global_form_bit_for_bit_at_every_panel_width(hopper, monkeypatch,
+                                                        n):
+    """K4's global form (the panel chain) at (n + 4) x n under each panel
+    width bs in {1, 8, 16, 32} and the plan's own (200 leaves ragged last
+    panels) gives the shared form's bits on every lane, the deficient,
+    zero-column and NaN lanes too; the lanes beside the NaN lane equal
+    their clean batch's bit for bit, and they stay finite."""
+    a, b = _qr_special_lanes(hopper, n)
+    k = next(k for k in KERNELS if k.name == "qr_solve")
+    shared = tp.qr_solve_fused(a, b)
+    clean = a.clone()
+    clean[3] = a[0]
+    same = tp.qr_solve_fused(clean, b)
+    keep = [i for i in range(a.shape[0]) if i != 3]
+    assert torch.equal(shared[keep], same[keep])
+    assert bool(torch.isfinite(shared[keep]).all())
+    assert torch.equal(shared[2, n // 2], torch.zeros_like(shared[2, 0]))
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", 0)
+    Qm = importlib.import_module("repro_torch.pipelines.qr_solve")
+    default = Qm.QR_PANEL_WIDTH
+    for bs in (1, 8, 16, 32, default):
+        monkeypatch.setattr(Qm, "QR_PANEL_WIDTH", bs)
+        assert tp.qr_panel_plan(n + 4, n, 1).bs == bs
+        before = k.launches_global
+        glob = tp.qr_solve_fused(a, b)
+        torch.cuda.synchronize()
+        assert k.launches_global == before + 1
+        assert torch.equal(_bits(shared), _bits(glob)), f"bs={bs}"
+
+
+@pytest.mark.parametrize("tile", [1, 5, 32, 128])
+def test_qr_global_form_bit_for_bit_at_every_tile_width(hopper,
+                                                       monkeypatch, tile):
+    """The tile width (a thread a column right of the panel; 1 and 5
+    leave ragged tiles, 128 four warps) moves no bit either."""
+    a, b = _card_case(hopper, "qr_solve", 16, 128, m=160, seed=7)
+    shared = tp.qr_solve_fused(a, b)
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", 0)
+    Qm = importlib.import_module("repro_torch.pipelines.qr_solve")
+    monkeypatch.setattr(Qm, "QR_TILE_WIDTH", tile)
+    assert tp.qr_panel_plan(160, 128, 1).tile == tile
+    assert torch.equal(shared, tp.qr_solve_fused(a, b))
+
+
+def test_qr_global_form_refuses_a_plan_it_was_not_compiled_for(hopper,
+                                                              monkeypatch):
+    """The C entry checks the plan it is given: a panel width past 32, a
+    tile past 128, or shared-memory bytes off the formula, raise; its
+    global shared-memory query is the plan's formula."""
+    a, b = _card_case(hopper, "qr_solve", 2, 64, seed=1)
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", 0)
+    Qm = importlib.import_module("repro_torch.pipelines.qr_solve")
+    plan = Qm.qr_panel_plan(68, 64, 1)
+    for name, value in (("QR_PANEL_WIDTH", 64), ("QR_TILE_WIDTH", 256)):
+        with monkeypatch.context() as mp:
+            mp.setattr(Qm, name, value)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                tp.qr_solve_fused(a, b)
+    with monkeypatch.context() as mp:
+        mp.setattr(Qm, "qr_panel_plan", lambda m, n, k: plan._replace(
+            smem_bytes=plan.smem_bytes + 4))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tp.qr_solve_fused(a, b)
+    q = common.load_library().qr_solve_global_smem
+    q.restype = ctypes.c_size_t
+    for bs, tile in ((1, 1), (16, 32), (32, 64), (32, 128)):
+        assert q(68, 2, bs, tile) == Qm.qr_panel_smem(68, 2, bs, tile)
+
+
 @pytest.mark.parametrize("kernel,n,m", [("cholesky_solve", 250, None),
                                         ("cholesky_solve", 1024, None),
                                         ("mmse_equalize", 256, None),
@@ -848,6 +938,48 @@ def test_primitive_global_form_equals_shared_form_bit_for_bit(
     torch.cuda.synchronize()
     assert k.launches_global == before + 1
     assert all(torch.equal(s, g) for s, g in zip(shared, glob))
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_trisolve_warp_form_equals_cta_form_bit_for_bit(hopper, monkeypatch,
+                                                        lower):
+    """K16 a warp a lane (n <= 32, m <= 8) against a block a lane (forced
+    by WARP_MAX_N = 0) at n in {1, 7, 8, 16, 31, 32} and m in {1, 2, 3,
+    8}, bit for bit, with NaN in the triangle neither reads; each call is
+    one launch of the form it names."""
+    k = next(k for k in KERNELS if k.name == "trisolve")
+    for n in (1, 7, 8, 16, 31, 32):
+        for m in (1, 2, 3, 8):
+            l, _ = _primitive_case(hopper, "trisolve", 300, n, seed=n)
+            if not lower:
+                l = l.mT.contiguous()
+            rhs = torch.from_numpy(np.random.default_rng(m).standard_normal(
+                (300, n, m)).astype(np.float32)).to(hopper)
+            idx = torch.triu_indices(n, n, offset=1)
+            if not lower:
+                idx = idx.flip(0)
+            l[:, idx[0], idx[1]] = float("nan")
+            assert ttri.trisolve_form(n, m) == "warp"
+            before = (k.launches, k.launches_warp)
+            warp = ttri.trisolve_fused(l, rhs, lower=lower)
+            assert (k.launches, k.launches_warp) == (before[0] + 1,
+                                                     before[1] + 1)
+            with monkeypatch.context() as mp:
+                mp.setattr(ttri, "WARP_MAX_N", 0)
+                cta = ttri.trisolve_fused(l, rhs, lower=lower)
+            torch.cuda.synchronize()
+            assert k.launches_warp == before[1] + 1
+            assert torch.equal(warp, cta), (n, m)
+            assert bool(torch.isfinite(warp).all()), (n, m)
+
+
+def test_trisolve_warp_form_refuses_past_its_limits(hopper, monkeypatch):
+    """The C entry takes the warp form only up to 32 rows and 8
+    right-hand sides."""
+    l, rhs = _primitive_case(hopper, "trisolve", 2, 40, seed=40)
+    monkeypatch.setattr(ttri, "WARP_MAX_N", 64)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ttri.trisolve_fused(l, rhs)
 
 
 @pytest.mark.parametrize("samples,taps", [(61470, 31), (61504, 65),
