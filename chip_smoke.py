@@ -15,7 +15,11 @@ Phases, each fatal on failure:
                spills; the plan of each K1-K4 global row (threads,
                panel width, K4's tile width, shared memory) and the
                -Xptxas -v registers and spills of the global instances
-               the plans run, and of K16's warp form;
+               the plans run, and of K16's warp form; K11's and K13's
+               instances' registers and the cluster plan (CTAs a lane,
+               threads, shared memory, panel in shared memory) of every
+               shape and batch the script launches them at, each beside
+               cudaOccupancyMaxActiveClusters;
   3. kernels — K1-K21 held against their plain PyTorch versions
                and the oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
@@ -47,7 +51,16 @@ Phases, each fatal on failure:
                to the shared form bit for bit, the lanes beside the NaN
                equal to their clean batch's; K10/K11 at panel
                widths that are not multiples of 32 (bs = 16 at n = 128,
-               48 at n = 192).  The HBM-scale path: the tiled K12-K14 at
+               48 at n = 192).  K11 and K13 on thread-block clusters: at
+               516 x 512, 1028 x 1024 and 2052 x 512 (K13, bs = 128) and
+               132 x 128, 260 x 256 and 160 x 128 (K11, bs = 16, 32, 64)
+               every form the cluster plan may take (each cluster size,
+               the panel's bands in shared memory where they fit and in
+               the device work buffer) gives one answer bit for bit,
+               within rtol of the plain version, on lanes with a
+               duplicated column, a zero column (its component zeroed)
+               and a NaN (the lanes beside it their clean batch's).  The
+               HBM-scale path: the tiled K12-K14 at
                n = 512 (B = 3276) and n = 1024 (B = 264, a carrier's
                width at that size would not fit the card's memory beside
                its plain version) at bs = 128, and their guard cases.
@@ -147,7 +160,10 @@ Phases, each fatal on failure:
                also print the share of 3.35 TB/s each reaches); the blocked
                kernels and the global forms at n = 128 and 256, K2's
                shared form at n = 128, and the tiled kernels at n = 512
-               (B = 3276) and 1024 (B = 264); K15-K17 at B = 3276 (K16
+               (B = 3276) and 1024 (B = 264), the blocked kernels at n =
+               128 and 256 and the tiled ones at n = 512 also at the 32
+               lanes the slot mixes serve (K11's and K13's rows with their
+               cluster plans); K15-K17 at B = 3276 (K16
                forward and backward) and K19 at 61,440 outputs.  The
                median of 30 calls, or of 5 where one call passes 250 ms
                (``reps`` on the row).  The fusion block: at B = 3276 and
@@ -185,6 +201,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 LANES = 3276                 # one 100 MHz carrier at 30 kHz SCS
+# the lanes the mid-range and HBM-scale slot mixes serve (--lanes 32): the
+# blocked and tiled kernels are timed there too, beside a carrier's width
+SERVED_LANES = 32
 SLOT_SIZES = (8, 16, 32)
 MID_SIZES = (128, 256)       # the blocked registry sizes (n % 32 == 0)
 # (n, lanes): the tiled registry sizes; at n = 1024 a lane is 4 MB of A
@@ -286,7 +305,9 @@ DSP_LAUNCHES = {"cholesky": 1, "trisolve": 2, "fft": 1, "fir": 1, "svd": 1}
 # the HBM-scale mix's split-complex jobs, at B = 264 as TILED_CASES
 MID_TIMES = {"cholesky_solve": ((250, None, "global", LANES),
                                 (1024, None, "global", 264)),
-             "cholesky_solve_blocked": ((128, None, None, LANES),
+             "cholesky_solve_blocked": ((128, None, None, SERVED_LANES),
+                                        (256, None, None, SERVED_LANES),
+                                        (128, None, None, LANES),
                                         (256, None, None, LANES)),
              "mmse_equalize": ((128, None, "shared", LANES),
                                (256, None, "global", LANES)),
@@ -295,7 +316,9 @@ MID_TIMES = {"cholesky_solve": ((250, None, "global", LANES),
                                      (512, None, "global", 264)),
              "qr_solve": ((250, 254, "global", LANES),
                           (1024, 1028, "global", 264)),
-             "qr_solve_blocked": ((128, None, None, LANES),
+             "qr_solve_blocked": ((128, None, None, SERVED_LANES),
+                                  (256, None, None, SERVED_LANES),
+                                  (128, None, None, LANES),
                                   (256, None, None, LANES))}
 # The cases of K1-K3's panel chain (their global form), whose inputs come
 # from a generator of their own so that every other check keeps its
@@ -323,6 +346,16 @@ GLOBAL_SOURCES = {"cholesky_solve": "cholesky_solve.cu",
                   "mmse_equalize_split": "mmse_equalize_split.cu"}
 TILED_TIMES = ("cholesky_solve_tiled", "qr_solve_tiled",
                "mmse_equalize_tiled")
+QR_CLUSTER_KERNELS = ("qr_solve_blocked", "qr_solve_tiled")
+# K11 / K13 on thread-block clusters: (kernel, m, n, bs, lanes) at which
+# every plan of qr_cluster_forms (each cluster size, the panel's bands in
+# shared memory and in the device work buffer) must give the same bits,
+# on lanes with a duplicated column, a zero column and a NaN
+QR_CLUSTER_BITS = (("qr_solve_tiled", 516, 512, 128, 8),
+                   ("qr_solve_tiled", 1028, 1024, 128, 4)) + tuple(
+    ("qr_solve_blocked", m, n, bs, 8) for m, n in ((132, 128), (260, 256),
+                                                    (160, 128))
+    for bs in (16, 32, 64)) + (("qr_solve_tiled", 2052, 512, 128, 4),)
 # the LM paths at full published width (float32 weights, bfloat16
 # compute): phi4-mini-3.8b (dense: 32 layers, d_model 3072, 24 query and 8
 # KV heads of 128, d_ff 8192, vocabulary 200,064), zamba2-2.7b (hybrid: 54
@@ -1024,6 +1057,14 @@ def main():
         return pp.chol_panel_plan(
             2 * n if name == "mmse_equalize_split" else n, shapes[-1][-1])
 
+    def cluster_plan(name, lanes, shapes):
+        """The cluster plan of a K11 / K13 launch of ``lanes`` lanes at
+        per-lane ``shapes`` (A, B) and the default panel width."""
+        (m, n), (_, k) = shapes
+        bs = (KCS.block_size(n) if name == "qr_solve_blocked"
+              else KCS.tiled_block_size(n))
+        return pp.qr_cluster_plan(lanes, m, n, k, bs, name)
+
     # K1-K3's global rows: the plan each runs and the registers and
     # spills of the global instance (<true>) of each source
     print("K1-K3 global plans (chol_panels.cuh, -Xptxas -v):", flush=True)
@@ -1067,6 +1108,40 @@ def main():
             print(f"  K16 warp form {line.split(chr(39))[1]}: "
                   f"{ptxas[i + 1]}; "
                   f"{ptxas[i + 2].removeprefix('ptxas info    : ')}",
+                  flush=True)
+
+    # K11 / K13: each instance's registers, and the cluster plan of each
+    # shape and batch the script launches beside the clusters the card
+    # holds at once at that plan (cudaOccupancyMaxActiveClusters)
+    print("K11 / K13 cluster plans (qr_cluster.cuh, -Xptxas -v):",
+          flush=True)
+    for name in QR_CLUSTER_KERNELS:
+        ptxas = ptxas_lines(common.build_info["log"], f"{name}.cu")
+        for i, line in enumerate(ptxas):
+            if "qr_cluster_kernel" in line:
+                print(f"  {name}.cu {line.split(chr(39))[1]}: {ptxas[i + 1]}; "
+                      f"{ptxas[i + 2].removeprefix('ptxas info    : ')}",
+                      flush=True)
+    launched = {(name, n + 4, n, KCS.block_size(n) if name ==
+                 "qr_solve_blocked" else KCS.tiled_block_size(n), lanes)
+                for name in QR_CLUSTER_KERNELS
+                for n, _, _, lanes in MID_TIMES.get(name, ())}
+    launched |= {("qr_solve_blocked", n + 4, n, bs, LANES)
+                 for n in MID_SIZES for bs in (32, 64)}
+    launched |= {("qr_solve_blocked", n + 4, n, bs, LANES)
+                 for n, bs in ODD_WIDTHS}
+    launched |= {("qr_solve_tiled", n + 4, n, TILED_BS, lanes)
+                 for n, lanes in TILED_CASES + ((512, SERVED_LANES),)}
+    for name, m, n, bs, lanes in sorted(launched):
+        plan = pp.qr_cluster_plan(lanes, m, n, 1, bs, name)
+        at_once = QS.qr_cluster_occupancy(name, plan)
+        print(f"    {name} {m} x {n} bs={bs} B={lanes}: {tuple(plan)}, "
+              f"{at_once} clusters at once, {-(-lanes // at_once)} waves",
+              flush=True)
+    for name, m, n, bs, _ in QR_CLUSTER_BITS:
+        for plan in pp.qr_cluster_forms(m, n, 1, bs):
+            print(f"    {name} {m} x {n} bs={bs} form {tuple(plan)}: "
+                  f"{QS.qr_cluster_occupancy(name, plan)} clusters at once",
                   flush=True)
 
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
@@ -1626,6 +1701,44 @@ def main():
         guards.append((f"{key} filler lane n=512", out))
         if not torch.equal(out, torch.zeros_like(out)):
             failures.append(f"{key}: filler lane n=512 not exactly 0")
+
+    # K11 / K13 under every plan the cluster plan may take for a shape
+    # (each cluster size, the bands in shared or device memory): one answer
+    # bit for bit; within the spec's rtol of the plain version on the
+    # clean lanes; the duplicated-column lane finite, the zero column's
+    # component zeroed, the lanes beside the NaN lane their clean batch's
+    cgen = torch.Generator(device=dev)
+    cgen.manual_seed(4)
+    for name, m, n, bs, b in QR_CLUSTER_BITS:
+        qa = grand(b, m, n, g=cgen)
+        qb = grand(b, m, 1, g=cgen)
+        qa[1, :, 3 * n // 4] = qa[1, :, 3]
+        qa[2, :, n // 2] = 0.0
+        clean = qa.clone()
+        clean[3] = qa[0]
+        qa[3, n // 3, n // 5] = float("nan")
+        forms = pp.qr_cluster_forms(m, n, 1, bs)
+        outs = [fused[name](qa, qb, bs=bs, plan=plan) for plan in forms]
+        same = all(torch.equal(x.view(torch.int32), outs[0].view(torch.int32))
+                   for x in outs)
+        keep = [i for i in range(b) if i != 3]
+        rows = [i for i in keep if i not in (1, 2)]
+        ok, err = close(outs[0][rows], plain[name](qa, qb, bs=bs)[rows],
+                        RTOLS[name])
+        max_err[name] = max(max_err[name], err)
+        guard = (bool(torch.isfinite(outs[0][keep]).all())
+                 and torch.equal(outs[0][2, n // 2],
+                                 torch.zeros_like(outs[0][2, n // 2]))
+                 and torch.equal(outs[0][keep], fused[name](
+                     clean, qb, bs=bs, plan=forms[0])[keep]))
+        print(f"  {name:<22} {m}x{n} bs={bs}: {len(forms)} forms "
+              f"{[(p.clusters, p.panel_shared) for p in forms]} bit for "
+              f"bit: {same}; |kernel-plain| {err:.3e} (rtol {RTOLS[name]:g}); "
+              f"guards: {guard}", flush=True)
+        if not (same and ok and guard):
+            failures.append(f"{name} {m}x{n} bs={bs}: forms {same}, plain "
+                            f"{ok}, guards {guard}")
+        del qa, qb, clean, outs
 
     # ---- the primitives: K15-K17 and K19 ----
     print("primitive kernels (K15-K17, K19):", flush=True)
@@ -2342,7 +2455,7 @@ def main():
         if name in TILED_TIMES:
             cases += [(f"n={n} B={b}", n, None, b,
                        lambda n=n, b=b: mid_case(key, b, n), key)
-                      for n, b in TILED_CASES]
+                      for n, b in TILED_CASES + ((512, SERVED_LANES),)]
         if name == "gemm":                 # whole shapes: lanes = 1
             cases += [(f"{m}x{kk}x{n} {dt}", None, None, 1,
                        lambda m=m, kk=kk, n=n, dt=getattr(torch, dt): (
@@ -2414,7 +2527,8 @@ def main():
                 "plan": (list(global_plan(name, shapes))
                          if form == "global" and (name in GLOBAL_SOURCES
                                                   or name == "qr_solve")
-                         else None)})
+                         else list(cluster_plan(name, lanes, shapes))
+                         if name in QR_CLUSTER_KERNELS else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
@@ -2426,7 +2540,10 @@ def main():
                      if name == "fft" else "")
                   + (f"  clocks (sm, max sm, temperature, power draw) "
                      f"{clocks}" if clocks else "")
-                  + (f"  plan (threads, bs, "
+                  + (f"  plan (clusters, threads, smem, "
+                     f"panel shared) {sweep[-1]['plan']}"
+                     if name in QR_CLUSTER_KERNELS else
+                     f"  plan (threads, bs, "
                      f"{'tile, ' if name == 'qr_solve' else ''}smem) "
                      f"{sweep[-1]['plan']}" if sweep[-1]["plan"] else ""),
                   flush=True)

@@ -57,7 +57,8 @@ from repro_torch.pipelines.pusch import (  # noqa: F401
     svd_apply_plain, svd_factor, svd_factor_fused, svd_factor_plain,
     unpack_factors)
 from repro_torch.pipelines.qr_solve import (  # noqa: F401
-    qr_panel_plan, qr_solve, qr_solve_blocked, qr_solve_blocked_fits,
+    QrClusterPlan, qr_cluster_forms, qr_cluster_plan, qr_panel_plan,
+    qr_solve, qr_solve_blocked, qr_solve_blocked_fits,
     qr_solve_blocked_fused, qr_solve_blocked_plain, qr_solve_fused, qr_solve_plain, qr_solve_tiled,
     qr_solve_tiled_fused, qr_solve_tiled_plain, qr_solve_unfused,
     qr_tiled_vmem_floats)
@@ -69,6 +70,7 @@ __all__ = [
     "mmse_equalize_split", "mmse_equalize_split_fused",
     "mmse_equalize_split_plain", "expand_complex_channel",
     "qr_solve", "qr_solve_fused", "qr_solve_plain", "qr_panel_plan",
+    "QrClusterPlan", "qr_cluster_plan", "qr_cluster_forms",
     "cholesky_solve_blocked", "cholesky_solve_blocked_fused",
     "cholesky_solve_blocked_plain", "cholesky_solve_blocked_fits",
     "qr_solve_blocked", "qr_solve_blocked_fused", "qr_solve_blocked_plain",

@@ -24,6 +24,8 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -34,7 +36,8 @@ from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
 from repro_torch.kernels.qr import qr_fused
 from repro_torch.kernels.trisolve import trisolve_fused
 from repro_torch.pipelines.cholesky_solve import (PANEL_SMEM_BYTES,
-                                                  block_size, tiled_admit)
+                                                  SM_SMEM_BYTES, block_size,
+                                                  tiled_admit)
 
 DEFAULT_TINY = 1e-20
 
@@ -312,8 +315,9 @@ def qr_solve_blocked_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 _BLOCKED = CudaKernel(
     "qr_solve_blocked", "qr_solve_blocked_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float],
-    "qr_solve_blocked_smem", 4,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    + [ctypes.c_int] * 3,
+    None, 1,
     source="src/repro_torch/csrc/qr_solve_blocked.cu",
     replaces="src/repro/pipelines/qr_solve.py:203 qr_solve_blocked",
 )
@@ -321,12 +325,15 @@ _BLOCKED = CudaKernel(
 
 def qr_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
                            bs: int | None = None,
-                           tiny: float = DEFAULT_TINY) -> torch.Tensor:
+                           tiny: float = DEFAULT_TINY,
+                           plan: QrClusterPlan | None = None) -> torch.Tensor:
     """Blocked (compact-WY) least squares — the mid-range large-n path
     (the registry's ``blocked`` variant, n >= 128 with n % 32 == 0).
     Same contract as :func:`qr_solve_fused`; panels of ``bs`` columns
     (default: 64 when it divides N, else 32).  K11 on a CUDA tensor (one
-    launch, R in a device work buffer), its plain version on a CPU one."""
+    cluster launch as :func:`qr_cluster_plan` says, or as ``plan``, one
+    of :func:`qr_cluster_forms`, says), its plain version on a CPU
+    one."""
     dev = check_f32("qr_solve_blocked", a, b)
     bsz, m, n = a.shape
     b2, m2, k = b.shape
@@ -336,23 +343,28 @@ def qr_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
     bs = block_size(n, bs)
     if dev.type == "cpu":
         return qr_solve_blocked_plain(a, b, bs=bs, tiny=tiny)
+    if not qr_solve_blocked_fits(m, n, k, bs):
+        raise ValueError(f"qr_solve_blocked: {m} x {n}, k = {k}, bs = {bs} "
+                         f"is past the blocked rung's shared memory "
+                         f"(qr_solve_blocked_fits); the tiled K13 serves it")
     x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
     if bsz:
-        work = torch.empty((bsz, m, n), dtype=torch.float32, device=dev)
-        _BLOCKED.launch(dev, (m, n, k, bs), a.data_ptr(), b.data_ptr(),
-                        x.data_ptr(), work.data_ptr(), bsz, m, n, k, bs,
-                        tiny)
+        _cluster_launch(_BLOCKED, a, b, x, bs, tiny, plan)
     return x
 
 
 def qr_solve_blocked_fits(m: int, n: int, k: int,
                           bs: int | None = None) -> bool:
-    """Whether K11 can launch at per-lane shapes (m, n), (m, k): its
-    panel of m (bs + 1) floats, T, V^T V and the rhs sit in shared
-    memory, which at bs = 64, k = 1 holds them only up to m = 752 (the
-    tiled K13 serves larger n)."""
-    return (_BLOCKED.smem_bytes(m, n, k, block_size(n, bs))
-            <= common.MAX_SMEM_BYTES)
+    """Whether the blocked rung takes per-lane shapes (m, n), (m, k): the
+    rule of the one-CTA K11 the cluster form replaced, whose panel of m
+    (bs + 1) floats, T, V^T V and the rhs had to fit one CTA's shared
+    memory — up to m = 752 at bs = 64, k = 1 (the tiled K13 serves larger
+    n).  The dispatcher's choices follow it; the cluster form takes every
+    shape it admits (:func:`qr_cluster_plan`)."""
+    bs = block_size(n, bs)
+    pc = bs + 1
+    floats = m * pc + 3 * bs + bs * pc + 64 * bs + m * k + k + 1
+    return 4 * floats <= common.MAX_SMEM_BYTES
 
 
 def qr_solve_blocked(a, b, *, bs: int | None = None,
@@ -430,8 +442,9 @@ def qr_solve_tiled_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 _TILED = CudaKernel(
     "qr_solve_tiled", "qr_solve_tiled_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float],
-    "qr_solve_tiled_smem", 4,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    + [ctypes.c_int] * 3,
+    None, 1,
     source="src/repro_torch/csrc/qr_solve_tiled.cu",
     replaces="src/repro/pipelines/qr_solve.py:376 qr_solve_tiled",
 )
@@ -439,14 +452,15 @@ _TILED = CudaKernel(
 
 def qr_solve_tiled_fused(a: torch.Tensor, b: torch.Tensor, *,
                          bs: int | None = None,
-                         tiny: float = DEFAULT_TINY) -> torch.Tensor:
+                         tiny: float = DEFAULT_TINY,
+                         plan: QrClusterPlan | None = None) -> torch.Tensor:
     """Slab-streamed compact-WY least squares — the HBM-scale path (the
     registry's ``tiled`` variant, n >= 512 with n % 32 == 0).  Same
     contract as :func:`qr_solve_fused`; slabs of ``bs`` columns (default
     ``tiled_block_size``), refused with ValueError where the reference
-    asserts.  K13 on a CUDA tensor (one launch, R, V and the rhs in a
-    device work buffer, shared memory independent of m and n), its plain
-    version on a CPU one."""
+    asserts.  K13 on a CUDA tensor (one cluster launch as
+    :func:`qr_cluster_plan` says, or as ``plan``, one of
+    :func:`qr_cluster_forms`, says), its plain version on a CPU one."""
     bsz, m, n = a.shape
     b2, m2, k = b.shape
     if not (m == m2 and bsz == b2 and m >= n):
@@ -459,10 +473,7 @@ def qr_solve_tiled_fused(a: torch.Tensor, b: torch.Tensor, *,
         return qr_solve_tiled_plain(a, b, bs=bs, tiny=tiny)
     x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
     if bsz:
-        work = torch.empty((bsz, m * (n + k)), dtype=torch.float32,
-                           device=dev)
-        _TILED.launch(dev, (m, n, k, bs), a.data_ptr(), b.data_ptr(),
-                      x.data_ptr(), work.data_ptr(), bsz, m, n, k, bs, tiny)
+        _cluster_launch(_TILED, a, b, x, bs, tiny, plan)
     return x
 
 
@@ -473,3 +484,277 @@ def qr_solve_tiled(a, b, *, bs: int | None = None,
     return qr_solve_tiled_fused(
         torch.as_tensor(a, device=dev).contiguous(),
         torch.as_tensor(b, device=dev).contiguous(), bs=bs)
+
+
+# ---------------------------------------------------------------------------
+# K11 and K13 on a thread-block cluster (csrc/qr_cluster.cuh)
+# ---------------------------------------------------------------------------
+
+QR_CLUSTER_SIZES = (1, 2, 4, 8)   # CTAs a lane (portable cluster sizes)
+QR_CLUSTER_THREADS = 256          # a CTA (the staged product tile's block)
+QR_CLUSTER_COLS = 64              # columns of a block dealt to a CTA
+QR_GROUP_MAX = 64                 # row groups of a panel, at most
+QR_CLUSTER_MAX_PANEL = QR_CLUSTER_THREADS   # a thread a panel column
+# Dynamic shared memory a CTA may take: the card's 227 KB less 2 KB for
+# the kernel's static pointer tables (1,224 bytes).
+QR_CLUSTER_SMEM_BYTES = PANEL_SMEM_BYTES - 2048
+_TILE_SMEM_FLOATS = 2 * 32 * 68   # tile_loops.cuh kTileSmemFloats
+
+
+class QrClusterPlan(NamedTuple):
+    """How K11 and K13 run a lane: on a cluster of ``clusters`` CTAs of
+    ``threads`` threads and ``smem_bytes`` of dynamic shared memory each,
+    R and y in the lane's device work buffer, the panel's row bands in
+    the CTAs' shared memory (``panel_shared``) or in the work buffer."""
+    clusters: int
+    threads: int
+    smem_bytes: int
+    panel_shared: bool
+
+
+def qr_group_rows(m: int) -> int:
+    """Rows of a panel's row group: 32, or the multiple of 32 that keeps a
+    panel's groups at most :data:`QR_GROUP_MAX` (``qc_group_rows``).  A
+    function of m alone: the groups fix every sum's order."""
+    return 32 * -(-(-(-m // 32)) // QR_GROUP_MAX)
+
+
+def _align4(floats: int) -> int:
+    return -(-floats // 4) * 4
+
+
+def _band_rows(m: int, c: int) -> int:
+    """Words of a band column (``qc_band_rows``): a rank's rows of the
+    tallest panel, plus one."""
+    return _rank_groups(m, c) * qr_group_rows(m) + 1
+
+
+def _rank_groups(m: int, c: int) -> int:
+    return -(-(-(-m // qr_group_rows(m))) // c)
+
+
+def qr_cluster_smem(m: int, bs: int, c: int, panel_shared: bool) -> int:
+    """Dynamic shared memory of a CTA (``qc_layout`` in
+    ``csrc/qr_cluster.cuh``): the product tiles' staging, T (bs (bs + 1)),
+    W (bs x 64), v's heads, tau, a reflector's sums and head row (bs
+    each), two exchange buffers of (groups + 1) x bs, and the panel's band
+    (groups x G rows of bs + 2 columns) where ``panel_shared``."""
+    floats = (_TILE_SMEM_FLOATS + bs * (bs + 1) + bs * QR_CLUSTER_COLS
+              + 4 * bs + 2 * (_rank_groups(m, c) + 1) * bs)
+    if panel_shared:
+        floats += (bs + 2) * _band_rows(m, c)
+    return 4 * floats
+
+
+def qr_cluster_work(m: int, n: int, k: int, bs: int,
+                    plan: QrClusterPlan) -> int:
+    """Floats of a lane's device work buffer (``qc_work_floats``): [R | y],
+    then the row bands unless they are in shared memory."""
+    floats = _align4(m * (n + k))
+    if not plan.panel_shared:
+        floats += plan.clusters * (bs + 2) * _band_rows(m, plan.clusters)
+    return _align4(floats)
+
+
+def _check_shape(m: int, n: int, k: int, bs: int) -> None:
+    if not (1 <= bs <= QR_CLUSTER_MAX_PANEL and n % bs == 0 and 1 <= n <= m
+            and k >= 1):
+        raise ValueError(f"qr_cluster_plan: m = {m}, n = {n}, k = {k}, "
+                         f"bs = {bs}")
+
+
+def qr_cluster_forms(m: int, n: int, k: int, bs: int) -> list:
+    """Every plan K11 and K13 can run at (m, n, k, bs): each cluster size,
+    the panel's bands in shared memory where they fit and in the work
+    buffer at every size.  They all give the same bits."""
+    _check_shape(m, n, k, bs)
+    out = []
+    for c in QR_CLUSTER_SIZES:
+        for panel_shared in (True, False):
+            smem = qr_cluster_smem(m, bs, c, panel_shared)
+            if smem <= QR_CLUSTER_SMEM_BYTES:
+                out.append(QrClusterPlan(c, QR_CLUSTER_THREADS, smem,
+                                         panel_shared))
+    if not out:
+        raise ValueError(f"qr_cluster_plan: m = {m}, n = {n}, k = {k}, bs = "
+                         f"{bs} fits no cluster's shared memory")
+    return out
+
+
+# Clusters an H100 SXM (132 SMs) holds at once, by the CTAs an SM holds
+# and the cluster size: cudaOccupancyMaxActiveClusters, which places a
+# cluster within one GPC, so clusters of 4 and 8 leave SMs idle.  The
+# CPU's stand-in for the card's own answer (qr_clusters_at_once).
+H100_CLUSTERS_AT_ONCE = {1: {1: 132, 2: 66, 4: 30, 8: 15},
+                         2: {1: 264, 2: 132, 4: 62, 8: 30}}
+# CTAs an SM each kernel's instance asks ptxas for (__launch_bounds__)
+QR_MIN_BLOCKS = {"qr_solve_blocked": 2, "qr_solve_tiled": 1}
+
+
+@functools.lru_cache(maxsize=None)
+def qr_clusters_at_once(kernel: str, plan: QrClusterPlan) -> int:
+    """Clusters of ``plan`` the card holds at once for K11 (``kernel``
+    "qr_solve_blocked") or K13 ("qr_solve_tiled"): on a machine with a
+    card its ``cudaOccupancyMaxActiveClusters`` (asked once a plan), on
+    the CPU an H100's (:data:`H100_CLUSTERS_AT_ONCE` at the CTAs an SM
+    holds by shared memory, at most the instance's launch bound)."""
+    if torch.cuda.is_available():
+        at_once = qr_cluster_occupancy(kernel, plan)
+        if at_once < 1:
+            raise RuntimeError(f"{kernel}: the card holds no cluster of "
+                               f"{plan}")
+        return at_once
+    per_sm = min(QR_MIN_BLOCKS[kernel],
+                 SM_SMEM_BYTES // (plan.smem_bytes + 2048 + 1024))
+    return H100_CLUSTERS_AT_ONCE[per_sm][plan.clusters]
+
+
+# A lane's SM cycles on a form (qr_lane_cycles), fitted to the sweep of
+# every form of K11 and K13 at their main shapes by `scripts/qr_phases.py
+# --forms` on an H100 (PERF.md): each reflector's chain (a barrier
+# and a gather, longer on more CTAs), cycles a reflector = A + B log2 C;
+# the products, C_FLOP cycles a flop a CTA; and with the bands in the work
+# buffer their pass, D cycles a panel element a CTA times the share of
+# L2's 50 MB that the bands of the lanes in flight take.
+QR_LANE_CYCLES = {"A": 5904.0, "B": 616.4, "C_FLOP": 0.04202, "D": 0.7287}
+L2_BYTES = 50 * 2**20
+
+
+def qr_lane_cycles(m: int, n: int, bs: int, plan: QrClusterPlan,
+                   lanes_in_flight: int) -> float:
+    """The modelled SM cycles of one lane of K11 / K13 at (m, n), panels
+    of ``bs``, on ``plan``, with ``lanes_in_flight`` lanes running at
+    once (:data:`QR_LANE_CYCLES`)."""
+    c = plan.clusters
+    k = QR_LANE_CYCLES
+    flops = 2 * (m * n * n - n ** 3 / 3)
+    cycles = n * (k["A"] + k["B"] * math.log2(c)) + k["C_FLOP"] * flops / c
+    if not plan.panel_shared:
+        # (pr - j)(bs - j) summed over a panel's reflectors, over panels
+        elems = sum((m - o - bs) * bs * (bs + 1) / 2
+                    + bs * (bs + 1) * (2 * bs + 1) / 6
+                    for o in range(0, n, bs))
+        in_flight = lanes_in_flight * m * (bs + 2) * 4 / L2_BYTES
+        cycles += k["D"] * elems / c * in_flight
+    return cycles
+
+
+def qr_cluster_plan(batch: int, m: int, n: int, k: int, bs: int,
+                    kernel: str = "qr_solve_tiled") -> QrClusterPlan:
+    """The one plan of K11 (``kernel`` "qr_solve_blocked") or K13
+    ("qr_solve_tiled") for ``batch`` lanes at (m, n, k) with panels of
+    ``bs``: of the shape's forms (:func:`qr_cluster_forms`), the one whose
+    waves of the clusters the card holds at once
+    (:func:`qr_clusters_at_once`) times its modelled lane
+    (:func:`qr_lane_cycles`) is least, the smaller cluster on a tie.
+    A larger cluster shortens a lane's products but lengthens each
+    reflector's barrier and leaves SMs idle where it does not divide a
+    GPC; bands in the work buffer cost shared memory nothing, so a CTA
+    holds less and more lanes run at once, until their bands outgrow
+    L2.  So 516 x 512 at bs = 128 takes C = 1 at a carrier's 3276 lanes
+    and C = 2 at the 32 served lanes, both with the bands in the work
+    buffer; 260 x 256 at bs = 64 C = 1 with work-buffer bands (two CTAs
+    an SM) at 3276 and C = 4 with shared bands at 32; 132 x 128 C = 1
+    with shared bands at both.  Shapes, batch and the card alone decide
+    it."""
+    def cost(plan):
+        at_once = qr_clusters_at_once(kernel, plan)
+        waves = -(-batch // at_once)
+        return waves * qr_lane_cycles(m, n, bs, plan, min(batch, at_once))
+    return min(qr_cluster_forms(m, n, k, bs),
+               key=lambda p: (cost(p), p.clusters))
+
+
+def _cluster_plan_args(kernel: CudaKernel, a: torch.Tensor, b: torch.Tensor,
+                       bs: int, plan: QrClusterPlan | None):
+    """The plan of a K11 / K13 launch (``plan`` checked against the
+    shape's forms) and its device work buffer."""
+    bsz, m, n = a.shape
+    k = b.shape[-1]
+    if plan is None:
+        plan = qr_cluster_plan(bsz, m, n, k, bs, kernel.name)
+    elif plan not in qr_cluster_forms(m, n, k, bs):
+        raise ValueError(f"{kernel.name}: {plan} is not a form of "
+                         f"{m} x {n}, k = {k}, bs = {bs}")
+    work = torch.empty(bsz * qr_cluster_work(m, n, k, bs, plan),
+                       dtype=torch.float32, device=a.device)
+    return plan, work
+
+
+def _cluster_launch(kernel: CudaKernel, a: torch.Tensor, b: torch.Tensor,
+                    x: torch.Tensor, bs: int, tiny: float,
+                    plan: QrClusterPlan | None) -> None:
+    """One cluster launch of K11 or K13 on CUDA tensors; raises where the
+    card refuses it."""
+    bsz, m, n = a.shape
+    k = b.shape[-1]
+    plan, work = _cluster_plan_args(kernel, a, b, bs, plan)
+    kernel.launch(a.device, (plan.smem_bytes,), a.data_ptr(), b.data_ptr(),
+                  x.data_ptr(), work.data_ptr(), bsz, m, n, k, bs, tiny,
+                  plan.clusters, int(plan.panel_shared), plan.smem_bytes)
+
+
+def qr_cluster_occupancy(name: str, plan: QrClusterPlan) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K11 (``name``
+    "qr_solve_blocked") or K13 ("qr_solve_tiled") at ``plan``: the
+    clusters the card holds at once (-1 where the query fails)."""
+    fn = getattr(common.load_library(), name + "_clusters")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return int(fn(plan.clusters, int(plan.panel_shared), plan.smem_bytes))
+
+
+# ---------------------------------------------------------------------------
+# The phase stamps of K11 and K13 (csrc/phase_clock.cuh)
+# ---------------------------------------------------------------------------
+
+QR_PHASES = ("load", "panel", "vt", "apply", "backsub", "gather", "dots")
+"""The phases a stamped K11 / K13 lane is split into: copying A and B in,
+the panels' reflectors, V^T V and T, the block reflector on the trailing
+columns and the rhs, the back substitution (each ending at its last
+barrier, waits included); the cluster form splits its panels further
+(``csrc/phase_clock.cuh``): "gather" up to each reflector's sums
+gathered (the cluster barrier's wait; a panel's bands loaded and first
+sums at its first reflector), "dots" the pass applying it and summing
+the next one's, "panel" the panel's end."""
+
+
+def qr_solve_phases(name: str, a: torch.Tensor, b: torch.Tensor, *,
+                    bs: int | None = None, tiny: float = DEFAULT_TINY,
+                    plan: QrClusterPlan | None = None):
+    """K11 (``name`` "qr_solve_blocked") or K13 ("qr_solve_tiled") through
+    its phase-stamped instance, on CUDA tensors: returns (x, stamps), the
+    stamps a (batch, 2 + len(QR_PHASES)) int64 tensor of each lane's
+    first and last SM clock on its cluster's first CTA and the cycles of
+    each phase, which add up to last - first.  Not a launch of the
+    kernel's counted entry (the served instance compiles the stamps
+    out)."""
+    kernel = {"qr_solve_blocked": _BLOCKED, "qr_solve_tiled": _TILED}[name]
+    dev = check_f32(name, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the phase stamps run on the card")
+    bsz, m, n = a.shape
+    k = b.shape[-1]
+    if name == "qr_solve_tiled":
+        bs = tiled_admit(name, n, bs,
+                         lambda w: qr_tiled_vmem_floats(m, n, w, k))
+    else:
+        bs = block_size(n, bs)
+    plan, work = _cluster_plan_args(kernel, a, b, bs, plan)
+    x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
+    stamps = torch.zeros((bsz, 2 + len(QR_PHASES)), dtype=torch.int64,
+                         device=dev)
+    fn = getattr(common.load_library(), name + "_phases_f32")
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(a.data_ptr(), b.data_ptr(), x.data_ptr(), work.data_ptr(),
+                 stamps.data_ptr(), bsz, m, n, k, bs, tiny, plan.clusters,
+                 int(plan.panel_shared), plan.smem_bytes,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        msg = common.load_library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: phase-stamped launch failed: {msg}")
+    return x, stamps

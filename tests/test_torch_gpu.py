@@ -738,7 +738,10 @@ def test_tiled_cholesky_guards_on_card(hopper):
     assert torch.equal(zeros, torch.all(want == 0, dim=-1))
 
 
-@pytest.mark.parametrize("name", sorted(TILED))
+# K13 (the tiled qr_solve) runs a lane on a cluster whose shared memory
+# grows with m (the panel's row bands): tests/test_torch_qr_cluster.py
+# holds its plans to the card's shared memory
+@pytest.mark.parametrize("name", sorted(set(TILED) - {"qr_solve"}))
 def test_tiled_shared_memory_is_independent_of_n(hopper, name):
     """A tiled CTA's dynamic shared memory depends on bs and k only, and
     fits a block at bs = 128."""
@@ -748,6 +751,118 @@ def test_tiled_shared_memory_is_independent_of_n(hopper, name):
         dims = {n: (n + 16, n, 2, 128) for n in (512, 1024)}
     assert k.smem_bytes(*dims[1024]) == k.smem_bytes(*dims[512]) \
         <= common.MAX_SMEM_BYTES
+
+
+# K11 and K13 on thread-block clusters: every cluster size and both
+# places of the panel's bands (the CTAs' shared memory, the device work
+# buffer) give the same bits; 2052 x 512 has its bands in the work buffer
+# at every size
+QR_CLUSTER_CASES = [("qr_solve_tiled", 516, 512, 128, 4),
+                    ("qr_solve_tiled", 1028, 1024, 128, 4),
+                    ("qr_solve_tiled", 2052, 512, 128, 4),
+                    ("qr_solve_blocked", 132, 128, 16, 8),
+                    ("qr_solve_blocked", 132, 128, 32, 8),
+                    ("qr_solve_blocked", 132, 128, 64, 8),
+                    ("qr_solve_blocked", 260, 256, 16, 8),
+                    ("qr_solve_blocked", 260, 256, 32, 8),
+                    ("qr_solve_blocked", 260, 256, 64, 8),
+                    ("qr_solve_blocked", 160, 128, 16, 8),
+                    ("qr_solve_blocked", 160, 128, 32, 8),
+                    ("qr_solve_blocked", 160, 128, 64, 8)]
+QR_CLUSTER_PAIRS = {
+    "qr_solve_blocked": (tp.qr_solve_blocked_fused,
+                         tp.qr_solve_blocked_plain, MID_RTOL),
+    "qr_solve_tiled": (tp.qr_solve_tiled_fused, tp.qr_solve_tiled_plain,
+                       2e-3)}
+
+
+def _qr_cluster_lanes(dev, m, n, b, seed):
+    """b lanes at m x n, one rhs: lane 1 has a column (3n/4) copying
+    column 3 (a rank-deficient later panel), lane 2 an exact zero column
+    (n/2), lane 3 a NaN; the others Gaussian (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((b, m, n)).astype(np.float32)
+    a[1, :, 3 * n // 4] = a[1, :, 3]
+    a[2, :, n // 2] = 0.0
+    a[3, n // 3, n // 5] = np.nan
+    rhs = rng.standard_normal((b, m, 1)).astype(np.float32)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(rhs).to(dev)
+
+
+@pytest.mark.parametrize("kernel,m,n,bs,b", QR_CLUSTER_CASES)
+def test_qr_cluster_forms_equal_bit_for_bit(hopper, kernel, m, n, bs, b):
+    """K11 / K13 under every plan of qr_cluster_forms (each cluster size,
+    the panel's bands in shared memory where they fit and in the work
+    buffer at every size) give one answer bit for bit, each one launch;
+    it is within the spec's rtol of
+    the plain version and the oracle on the clean lanes, the zero
+    column's component is zeroed, the deficient lane finite, and the
+    lanes beside the NaN lane equal their clean batch's."""
+    fused, plain, rtol = QR_CLUSTER_PAIRS[kernel]
+    a, rhs = _qr_cluster_lanes(hopper, m, n, b, seed=m + bs)
+    forms = tp.qr_cluster_forms(m, n, 1, bs)
+    assert ({p.clusters for p in forms if not p.panel_shared}
+            == {1, 2, 4, 8})
+    assert any(p.panel_shared for p in forms) == (m < 2052)
+    outs = []
+    for plan in forms:
+        before = _launches(kernel)
+        outs.append(fused(a, rhs, bs=bs, plan=plan))
+        torch.cuda.synchronize()
+        assert _launches(kernel) == before + 1
+    for plan, out in zip(forms, outs):
+        assert torch.equal(_bits(out), _bits(outs[0])), str(plan)
+    got = outs[0]
+    keep = [i for i in range(b) if i != 3]
+    clean = [i for i in keep if i not in (1, 2)]
+    want = plain(a, rhs, bs=bs)
+    assert_close(got[clean].cpu().numpy(), want[clean].cpu().numpy(),
+                 rtol=rtol, name=f"{kernel} {m}x{n} bs={bs}")
+    from repro_torch.kernels import ref
+    assert_close(got[clean].cpu().numpy(),
+                 ref.qr_solve(a[clean], rhs[clean]).cpu().numpy(),
+                 rtol=rtol, name=f"{kernel} {m}x{n} oracle")
+    assert bool(torch.isfinite(got[keep]).all())
+    assert torch.equal(got[2, n // 2], torch.zeros_like(got[2, n // 2]))
+    a_clean = a.clone()
+    a_clean[3] = a[0]
+    again = fused(a_clean, rhs, bs=bs, plan=forms[0])
+    assert torch.equal(_bits(got[keep]), _bits(again[keep]))
+
+
+def test_qr_cluster_plan_refused_off_its_forms(hopper):
+    """A plan that is not one of the shape's forms raises before any
+    launch; the C entry refuses bytes off its formula."""
+    a, rhs = _card_case(hopper, "qr_solve", 2, 128, seed=3)
+    plan = tp.qr_cluster_plan(2, 132, 128, 1, 64)
+    with pytest.raises(ValueError, match="not a form"):
+        tp.qr_solve_blocked_fused(a, rhs, plan=plan._replace(clusters=16))
+    Qm = importlib.import_module("repro_torch.pipelines.qr_solve")
+    k = next(k for k in KERNELS if k.name == "qr_solve_blocked")
+    x = torch.empty((2, 128, 1), device=hopper)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k.launch(hopper, (plan.smem_bytes,), a.data_ptr(), rhs.data_ptr(),
+                 x.data_ptr(), None, 2, 132, 128, 1, 64, Qm.DEFAULT_TINY,
+                 plan.clusters, int(plan.panel_shared), plan.smem_bytes + 4)
+
+
+@pytest.mark.parametrize("kernel,m,n,b", [("qr_solve_blocked", 260, 256, 32),
+                                          ("qr_solve_tiled", 516, 512, 32)])
+def test_qr_phase_stamps_are_ordered_and_cover_the_kernel(hopper, kernel,
+                                                          m, n, b):
+    """The phase-stamped instance gives the served answer bit for bit;
+    each lane's stamps are ordered and its phases add up to its time."""
+    Qm = importlib.import_module("repro_torch.pipelines.qr_solve")
+    a, rhs = _card_case(hopper, "qr_solve", b, n, m=m, seed=5)
+    before = _launches(kernel)
+    x, stamps = Qm.qr_solve_phases(kernel, a, rhs)
+    torch.cuda.synchronize()
+    assert _launches(kernel) == before
+    assert torch.equal(x, QR_CLUSTER_PAIRS[kernel][0](a, rhs))
+    st = stamps.cpu()
+    assert st.shape == (b, 2 + len(Qm.QR_PHASES))
+    assert bool((st[:, 1] > st[:, 0]).all() and (st[:, 2:] >= 0).all())
+    assert torch.equal(st[:, 2:].sum(dim=1), st[:, 1] - st[:, 0])
 
 
 @pytest.mark.parametrize("name", sorted(TILED))
