@@ -347,6 +347,25 @@ GLOBAL_SOURCES = {"cholesky_solve": "cholesky_solve.cu",
 TILED_TIMES = ("cholesky_solve_tiled", "qr_solve_tiled",
                "mmse_equalize_tiled")
 QR_CLUSTER_KERNELS = ("qr_solve_blocked", "qr_solve_tiled")
+CHOL_TILED_KERNELS = ("cholesky_solve_tiled", "mmse_equalize_tiled")
+# K12 / K14 on thread-block clusters: (kernel, m, n, bs, lanes) at which
+# every plan of chol_tiled_forms (each cluster size and product tile) must
+# give C = 1's bits, on a deficient lane and a poisoned one (K12: NaN in
+# the upper triangle; K14: a NaN in H): the served shapes, a tall channel
+# and the odd slab widths
+CHOL_TILED_BITS = (("mmse_equalize_tiled", 516, 512, 128, 4),
+                   ("mmse_equalize_tiled", 1028, 1024, 128, 4),
+                   ("mmse_equalize_tiled", 2052, 512, 128, 4),
+                   ("mmse_equalize_tiled", 516, 512, 64, 4),
+                   ("mmse_equalize_tiled", 516, 512, 32, 4),
+                   ("cholesky_solve_tiled", 512, 512, 128, 4),
+                   ("cholesky_solve_tiled", 1024, 1024, 128, 4),
+                   ("cholesky_solve_tiled", 512, 512, 64, 4),
+                   ("cholesky_solve_tiled", 512, 512, 32, 4))
+# K8 and K9 at the shapes the served DAGs launch them: the svd_solve DAG
+# at n = 8 on the mux's 4 lanes (serve_solvers --pusch) and at n = 24 on
+# 32 lanes (--sizes 24 --lanes 32), (n, lanes), m = n + 4
+SVD_SERVED = ((8, 4), (24, 32))
 # K11 / K13 on thread-block clusters: (kernel, m, n, bs, lanes) at which
 # every plan of qr_cluster_forms (each cluster size, the panel's bands in
 # shared memory and in the device work buffer) must give the same bits,
@@ -1057,6 +1076,13 @@ def main():
         return pp.chol_panel_plan(
             2 * n if name == "mmse_equalize_split" else n, shapes[-1][-1])
 
+    def tiled_plan(name, lanes, shapes):
+        """The cluster plan of a K12 / K14 launch of ``lanes`` lanes at
+        per-lane ``shapes`` (A, B or H, y) and the default panel width."""
+        (m, n), (_, k) = shapes
+        return pp.chol_tiled_plan(lanes, n, k, KCS.tiled_block_size(n), name,
+                                  m if name == "mmse_equalize_tiled" else None)
+
     def cluster_plan(name, lanes, shapes):
         """The cluster plan of a K11 / K13 launch of ``lanes`` lanes at
         per-lane ``shapes`` (A, B) and the default panel width."""
@@ -1143,6 +1169,33 @@ def main():
             print(f"    {name} {m} x {n} bs={bs} form {tuple(plan)}: "
                   f"{QS.qr_cluster_occupancy(name, plan)} clusters at once",
                   flush=True)
+
+    # K12 / K14: each instance's registers, and the cluster plan of each
+    # shape and batch the script launches beside the clusters the card
+    # holds at once at that plan (cudaOccupancyMaxActiveClusters)
+    print("K12 / K14 cluster plans (tiled_chol.cuh, -Xptxas -v):",
+          flush=True)
+    for name in CHOL_TILED_KERNELS:
+        ptxas = ptxas_lines(common.build_info["log"], f"{name}.cu")
+        for i, line in enumerate(ptxas):
+            if f"{name}_kernel" in line:
+                print(f"  {name}.cu {line.split(chr(39))[1][-40:]}: "
+                      f"{ptxas[i + 1]}; "
+                      f"{ptxas[i + 2].removeprefix('ptxas info    : ')}",
+                      flush=True)
+    for name in CHOL_TILED_KERNELS:
+        for n, lanes in TILED_CASES + ((512, SERVED_LANES),):
+            m = n + 4 if name == "mmse_equalize_tiled" else n
+            plan = tiled_plan(name, lanes, ((m, n), (m, 2)))
+            at_once = KCS.chol_tiled_occupancy(name, plan)
+            print(f"    {name} {m} x {n} B={lanes}: {tuple(plan)}, "
+                  f"{at_once} clusters at once, {-(-lanes // at_once)} "
+                  f"waves", flush=True)
+    for name, m, n, bs, _ in CHOL_TILED_BITS:
+        mm = m if name == "mmse_equalize_tiled" else None
+        print(f"    {name} {m} x {n} bs={bs} forms: " + ", ".join(
+            f"{tuple(p)} {KCS.chol_tiled_occupancy(name, p)} at once"
+            for p in pp.chol_tiled_forms(n, 2, bs, name, mm)), flush=True)
 
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_fused,
@@ -1739,6 +1792,57 @@ def main():
             failures.append(f"{name} {m}x{n} bs={bs}: forms {same}, plain "
                             f"{ok}, guards {guard}")
         del qa, qb, clean, outs
+
+    # K12 / K14 under every plan of chol_tiled_forms (each cluster size and
+    # product tile): C = 1's answer bit for bit; within the spec's rtol of
+    # the plain version on the clean lanes; K12's poisoned upper triangle
+    # its clean lane's answer, K14's NaN lane leaving its neighbours their
+    # clean batch's, the deficient lane finite (inputs from a generator of
+    # their own, so every other check keeps its draw)
+    kgen = torch.Generator(device=dev)
+    kgen.manual_seed(5)
+    for name, m, n, bs, b in CHOL_TILED_BITS:
+        k14 = name == "mmse_equalize_tiled"
+        if k14:
+            ta, tb = grand(b, m, n, g=kgen), grand(b, m, 2, g=kgen)
+            ta[1, :, 3 * n // 5] = ta[1, :, 3]
+            clean = ta.clone()
+            ta[2, m // 3, n // 5] = float("nan")
+        else:
+            ta, tb = mid_case("cholesky_solve", b, n, g=kgen)
+            f_ = grand(n, n, g=kgen)
+            f_[:, 3 * n // 5] = f_[:, 3]
+            ta[1] = f_ @ f_.T
+            ta[2] = ta[0]
+            tb[2] = tb[0]
+            iu = torch.triu_indices(n, n, offset=1, device=dev)
+            ta[2, iu[0], iu[1]] = float("nan")
+        forms = pp.chol_tiled_forms(n, 2, bs, name, m if k14 else None)
+        outs = [fused[name](ta, tb, bs=bs, plan=plan) for plan in forms]
+        one = next(o for p, o in zip(forms, outs) if p.clusters == 1)
+        same = all(torch.equal(x.view(torch.int32), one.view(torch.int32))
+                   for x in outs)
+        rows = [0, 3]
+        ok, err = close(one[rows], plain[name](ta[rows], tb[rows], bs=bs),
+                        RTOLS.get(name, RTOL))
+        max_err[name] = max(max_err[name], err)
+        if k14:
+            keep = [0, 1, 3]
+            guard = torch.equal(one[keep].view(torch.int32), fused[name](
+                clean[keep].contiguous(), tb[keep].contiguous(), bs=bs,
+                plan=forms[0]).view(torch.int32))
+        else:
+            guard = torch.equal(one[2].view(torch.int32),
+                                one[0].view(torch.int32))
+        guard = guard and bool(torch.isfinite(one[1]).all())
+        print(f"  {name:<22} {m}x{n} bs={bs}: {len(forms)} forms "
+              f"{[(p.clusters, p.tile) for p in forms]} bit for bit: "
+              f"{same}; |kernel-plain| {err:.3e} (rtol "
+              f"{RTOLS.get(name, RTOL):g}); guards: {guard}", flush=True)
+        if not (same and ok and guard):
+            failures.append(f"{name} {m}x{n} bs={bs}: forms {same}, plain "
+                            f"{ok}, guards {guard}")
+        del ta, tb, outs, one
 
     # ---- the primitives: K15-K17 and K19 ----
     print("primitive kernels (K15-K17, K19):", flush=True)
@@ -2456,6 +2560,10 @@ def main():
             cases += [(f"n={n} B={b}", n, None, b,
                        lambda n=n, b=b: mid_case(key, b, n), key)
                       for n, b in TILED_CASES + ((512, SERVED_LANES),)]
+        if name in ("svd", "svd_apply"):   # the served DAGs' widths
+            cases += [(f"n={n} B={b}", n, None, b,
+                       lambda n=n, b=b: slot_case(key, rng, b, n), key)
+                      for n, b in SVD_SERVED]
         if name == "gemm":                 # whole shapes: lanes = 1
             cases += [(f"{m}x{kk}x{n} {dt}", None, None, 1,
                        lambda m=m, kk=kk, n=n, dt=getattr(torch, dt): (
@@ -2528,7 +2636,9 @@ def main():
                          if form == "global" and (name in GLOBAL_SOURCES
                                                   or name == "qr_solve")
                          else list(cluster_plan(name, lanes, shapes))
-                         if name in QR_CLUSTER_KERNELS else None)})
+                         if name in QR_CLUSTER_KERNELS
+                         else list(tiled_plan(name, lanes, shapes))
+                         if name in CHOL_TILED_KERNELS else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
@@ -2543,6 +2653,9 @@ def main():
                   + (f"  plan (clusters, threads, smem, "
                      f"panel shared) {sweep[-1]['plan']}"
                      if name in QR_CLUSTER_KERNELS else
+                     f"  plan (clusters, threads, smem, tile) "
+                     f"{sweep[-1]['plan']}"
+                     if name in CHOL_TILED_KERNELS else
                      f"  plan (threads, bs, "
                      f"{'tile, ' if name == 'qr_solve' else ''}smem) "
                      f"{sweep[-1]['plan']}" if sweep[-1]["plan"] else ""),

@@ -1,4 +1,4 @@
-// K12: slab-streamed right-looking fused SPD solve, one CTA per lane.
+// K12: slab-streamed right-looking fused SPD solve, a lane on a cluster.
 //
 // Replaces: src/repro/pipelines/cholesky_solve.py, cholesky_solve_tiled
 // (_cholesky_solve_tiled_kernel, _tiled_factor_cell, _tiled_trailing_update,
@@ -11,50 +11,75 @@
 // What bounds it on an H100: per lane n^3/3 + 2 n^2 k FLOPs and
 // n (n + 1) / 2 + 2 n k floats in and out.  At n = 512, bs = 128 one slab is
 // 256 KB, more than a CTA's 227 KB of shared memory, so the ordered grid
-// axes become loops inside one CTA per lane (tiled_chol.cuh): the lower
-// triangle of A is copied into a per-lane work buffer (the upper triangle
-// is never loaded), the right-hand sides are solved in place in the output,
-// and only the panel's diagonal block, a chunk of the rows below it and
-// the staged product tiles pass through shared memory.  The CTA's shared
-// memory depends on bs and k alone: 102 KB at bs = 128, k = 2, for every n,
-// and the kernel is held to 128 registers, so two CTAs share an SM.
-// The threshold max(eps max diag A, 1e-30) comes from the raw diagonal, as
-// the reference computes it outside its kernel.
+// axes become loops inside the lane (tiled_chol.cuh): the first panel reads
+// A's lower triangle (its upper triangle is never read) and the trailing
+// update writes A less the panel's product into a per-lane work buffer
+// where the later panels work, the right-hand sides are solved in place in
+// the output, and only the panel's diagonal block, a chunk of the rows
+// below it and the product tiles' stages pass through shared memory, whose
+// size depends on bs, k and the tile alone: 102 KB at bs = 128, k = 2, so
+// two CTAs share an SM (the kernel is held to 128 registers).  What holds it back is the
+// order of the panels and, at the 32 lanes the HBM-scale mix serves, the
+// SMs one CTA a lane leaves idle; so a lane runs on a thread-block cluster
+// of C CTAs that deal the rows of L21, the trailing tiles and the back
+// substitution's sums among them, and the products run in wide tiles
+// staged by cp.async.  The plan (C, the tile, shared memory) is
+// pipelines/cholesky_solve.py's chol_tiled_plan; every plan gives the same
+// bits.  The threshold max(eps max diag A, 1e-30) comes from the raw
+// diagonal, as the reference computes it outside its kernel.
 #include <cstddef>
+#include <cstdint>
 
 #include "tiled_chol.cuh"
 
 namespace repro_torch {
 namespace {
 
-__global__ void __launch_bounds__(kTileThreads, 2)
+template <bool kStamp, int kT>
+__global__ void __launch_bounds__(kTcThreads, 2)
 cholesky_solve_tiled_kernel(const float* __restrict__ A,
                             const float* __restrict__ B, float* X,
-                            float* work, int n, int k, int bs, float eps) {
-  extern __shared__ float smem[];
-  const TiledLayout L = tiled_layout(k, bs);
+                            float* work, unsigned long long* stamps, int n,
+                            int k, int bs, int c, float eps) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  TiledLane<kStamp> ln(c);
+  const TiledLayout L = tiled_layout(k, bs, kT);
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const size_t lane = blockIdx.x;
   const size_t nn = static_cast<size_t>(n) * n;
-  const float* al = A + lane * nn;
-  float* a = work + lane * nn;
-  float* y = X + lane * n * k;
-  for (int i = tid >> 5; i < n; i += nt >> 5)      // a warp a row
-    for (int j = tid & 31; j <= i; j += 32)
-      a[i * static_cast<size_t>(n) + j] = al[i * static_cast<size_t>(n) + j];
-  for (int e = tid; e < n * k; e += nt) y[e] = B[lane * n * k + e];
-  float dmax = -INFINITY;
-  for (int i = tid; i < n; i += nt)
+  const float* al = A + ln.lane * nn;
+  float* a = work + ln.lane * nn;
+  float* y = X + ln.lane * n * k;
+  // A is read in place: the first panel reads its lower triangle where
+  // later panels read the work buffer (tiled_factor's a_in)
+  const bool vec4 = n % 4 == 0 && bs % 4 == 0;
+  const bool a16 = vec4 && (reinterpret_cast<uintptr_t>(A) & 15) == 0;
+  for (int e = ln.cl.rank * kTcThreads + tid; e < n * k; e += kTcThreads * c)
+    y[e] = B[ln.lane * n * k + e];
+  float dmax = -INFINITY;       // every rank, from A's raw diagonal
+  for (int i = tid; i < n; i += kTcThreads)
     dmax = nan_max(dmax, al[i * static_cast<size_t>(n) + i]);
   dmax = block_max(dmax, smem + L.red);
   const float thresh = isnan(dmax) ? NAN : fmaxf(eps * dmax, kPivotFloor);
-  tiled_factor(a, y, n, k, bs, thresh, smem);
-  tiled_backsub(a, y, n, k, bs, smem);
+  ln.cl.sync();
+  ln.clk.mark(kTpLoad);
+  tiled_factor<kT>(a, al, y, n, k, bs, thresh, vec4, a16, ln.cl, smem,
+                   ln.clk);
+  tiled_backsub<kT>(a, y, n, k, bs, vec4, ln.cl, smem, ln.clk);
+  if (kStamp) ln.clk.write(stamps + ln.lane * kTiledStampWords);
 }
 
-size_t smem_bytes(int k, int bs) {
-  return sizeof(float) * static_cast<size_t>(tiled_layout(k, bs).total);
+template <bool kStamp>
+int launch(const void* a, const void* b, void* x, void* work,
+           unsigned long long* stamps, int batch, int n, int k, int bs,
+           float eps, int c, int tile, int smem, void* stream) {
+  if (!tiled_plan_ok(n, k, bs, c, tile, smem)) return cudaErrorInvalidValue;
+  const auto kernel = tile == 128 ? cholesky_solve_tiled_kernel<kStamp, 128>
+                                  : cholesky_solve_tiled_kernel<kStamp, 64>;
+  return cluster_launch(kernel, batch, c, kTcThreads, smem, stream,
+                        static_cast<const float*>(a),
+                        static_cast<const float*>(b), static_cast<float*>(x),
+                        static_cast<float*>(work), stamps, n, k, bs, c, eps);
 }
 
 }  // namespace
@@ -62,26 +87,35 @@ size_t smem_bytes(int k, int bs) {
 
 extern "C" {
 
-// Independent of n: the slabs stream through device memory.
-size_t cholesky_solve_tiled_smem(int n, int k, int bs) {
-  (void)n;
-  return repro_torch::smem_bytes(k, bs);
-}
-
 // a (batch, n, n), b (batch, n, k) -> x (batch, n, k), all float32;
-// work: batch * n * n floats; n % bs == 0.
+// work: batch * n * n floats; n % bs == 0; the plan (c, tile, smem) must be
+// chol_tiled_plan's formula.
 int cholesky_solve_tiled_f32(const void* a, const void* b, void* x,
                              void* work, int batch, int n, int k, int bs,
-                             float eps, void* stream) {
+                             float eps, int c, int tile, int smem,
+                             void* stream) {
+  return repro_torch::launch<false>(a, b, x, work, nullptr, batch, n, k, bs,
+                                    eps, c, tile, smem, stream);
+}
+
+// The same solve with the phase stamps (phase_clock.cuh): stamps holds
+// batch * kTiledStampWords words.  Only scripts/chol_tiled_phases.py
+// launches it.
+int cholesky_solve_tiled_phases_f32(const void* a, const void* b, void* x,
+                                    void* work, void* stamps, int batch,
+                                    int n, int k, int bs, float eps, int c,
+                                    int tile, int smem, void* stream) {
+  return repro_torch::launch<true>(
+      a, b, x, work, static_cast<unsigned long long*>(stamps), batch, n, k,
+      bs, eps, c, tile, smem, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the served instance of a plan.
+int cholesky_solve_tiled_clusters(int c, int tile, int smem) {
   using namespace repro_torch;
-  const size_t smem = smem_bytes(k, bs);
-  cudaError_t err = allow_smem(cholesky_solve_tiled_kernel, smem);
-  if (err != cudaSuccess) return err;
-  cholesky_solve_tiled_kernel<<<batch, kTileThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(x), static_cast<float*>(work), n, k, bs, eps);
-  return cudaGetLastError();
+  const auto kernel = tile == 128 ? cholesky_solve_tiled_kernel<false, 128>
+                                  : cholesky_solve_tiled_kernel<false, 64>;
+  return cluster_occupancy(kernel, c, kTcThreads, smem);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// K14: slab-streamed fused MMSE equalizer, one CTA per lane.
+// K14: slab-streamed fused MMSE equalizer, a lane on a cluster.
 //
 // Replaces: src/repro/pipelines/mmse.py, mmse_equalize_tiled
 // (_mmse_tiled_kernel), the TPU kernel whose (lanes, 2 steps + 1, tiles)
@@ -10,85 +10,134 @@
 //
 // What bounds it on an H100: per lane m n (n + 1) + 2 m n k FLOPs for the
 // Gram and the matched filter (the lower triangle of G only) on top of the
-// tiled solve's n^3/3 + 2 n^2 k, and m n + m k + n k floats in and out.
-// The Gram is computed in the kernel, in staged 64 x 64 tiles over the
-// lower triangle streaming row chunks of H (tile_loops.cuh), each sum over
-// H's rows in order, sigma2 added to the diagonal after the sum; only the
-// lower triangle of the work buffer is written, and the factor never reads
-// above it.  Then K12's phases (tiled_chol.cuh) run over G with the
-// threshold max(eps max diag G, 1e-30).  The CTA's shared memory depends
-// on bs and k alone, as K12's.
+// tiled solve's n^3/3 + 2 n^2 k, and m n + m k + n k floats in and out;
+// the Gram is three quarters of the FLOPs.  The Gram is computed in the
+// kernel in wide product tiles over the lower triangle (tile_loops.cuh:
+// kT x kT, H's rows staged by cp.async), each sum over H's rows in order,
+// sigma2 added to the diagonal after the sum; only the lower triangle of
+// the work buffer is written.  The lane runs on a thread-block cluster of
+// C CTAs (tiled_chol.cuh): the Gram's tiles and the matched filter's
+// elements are dealt to the ranks, then K12's phases run over G with the
+// threshold max(eps max diag G, 1e-30).  The plan (C, the tile, shared
+// memory) is pipelines/cholesky_solve.py's chol_tiled_plan; every plan
+// gives the same bits, and the CTA's shared memory depends on bs, k and
+// the tile alone, as K12's.
 #include <cstddef>
+#include <cstdint>
 
 #include "tiled_chol.cuh"
 
 namespace repro_torch {
 namespace {
 
-__global__ void __launch_bounds__(kTileThreads, 2)
-mmse_equalize_tiled_kernel(const float* __restrict__ H,
-                           const float* __restrict__ Y, float* X,
-                           float* work, int m, int n, int k, int bs,
-                           float sigma2, float eps) {
-  extern __shared__ float smem[];
-  const TiledLayout L = tiled_layout(k, bs);
-  float* stage = smem + L.chunk;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const size_t lane = blockIdx.x;
+// One kT x kT tile of G = H^T H + sigma2 I at (i0, j0), each sum over H's
+// rows in order, sigma2 added to the diagonal after the sum; lower
+// triangle only.  Not inlined, so its registers (the tile's sums) are its
+// own and not the whole kernel's.
+template <int kT>
+__device__ __noinline__ void gram_tile(float* g, const float* h, int n,
+                                       int m, int i0, int j0, float sigma2,
+                                       bool h16, float* stage) {
   const size_t ld = n;
-  const float* h = H + lane * m * ld;
-  const float* yl = Y + lane * m * k;
-  float* g = work + lane * ld * n;
-  float* z = X + lane * n * k;
-  // ---- Gram: the lower 64 x 64 tiles of G = H^T H + sigma2 I ----
-  const int tiles = ceil_div(n, kTile);
-  for (int ti = 0; ti < tiles; ++ti) {
-    for (int tj = 0; tj <= ti; ++tj) {
-      const int i0 = ti * kTile;
-      const int j0 = tj * kTile;
-      const auto la = [=](int p, int c) {
-        return i0 + c < n ? h[p * ld + i0 + c] : 0.0f;
-      };
-      const auto lb = [=](int p, int c) {
-        return j0 + c < n ? h[p * ld + j0 + c] : 0.0f;
-      };
-      float acc[4][4];
-      tile_product<false, false>(acc, m, la, lb, stage,
-                                 stage + kDepthChunk * kTilePitch);
+  float acc[kT / 16][kT / 16];
+  wide_product<kT>(acc, m, h + i0, n, n - i0, h + j0, n, n - j0, h16,
+                   stage);
+  const int ry = wide_ry();
+  const int cx = wide_cx();
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = tile_row(i0, u);
+  for (int u = 0; u < kT / 16; ++u) {
+    const int i = i0 + wide_off(ry, u);
 #pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int j = tile_col(j0, v);
-          if (i < n && j <= i)
-            g[i * ld + j] = i == j ? acc[u][v] + sigma2 : acc[u][v];
-        }
-      }
+    for (int v = 0; v < kT / 16; ++v) {
+      const int j = j0 + wide_off(cx, v);
+      if (i < n && j <= i)
+        g[i * ld + j] = i == j ? acc[u][v] + sigma2 : acc[u][v];
     }
   }
-  // ---- matched filter z = H^T y, each sum over H's rows in order ----
-  for (int e = tid; e < n * k; e += nt) {
-    const int i = e % n;
-    const int q = e / n;
-    float s = 0.0f;
-    for (int p = 0; p < m; ++p) s += h[p * ld + i] * yl[p * static_cast<size_t>(k) + q];
-    z[i * static_cast<size_t>(k) + q] = s;
-  }
-  __syncthreads();
-  // ---- threshold from G's diagonal (the reference's running maximum
-  //      starts at 0) ----
-  float dmax = 0.0f;
-  for (int i = tid; i < n; i += nt) dmax = nan_max(dmax, g[i * ld + i]);
-  dmax = block_max(dmax, smem + L.red);
-  const float thresh = isnan(dmax) ? NAN : fmaxf(eps * dmax, kPivotFloor);
-  tiled_factor(g, z, n, k, bs, thresh, smem);
-  tiled_backsub(g, z, n, k, bs, smem);
 }
 
-size_t smem_bytes(int k, int bs) {
-  return sizeof(float) * static_cast<size_t>(tiled_layout(k, bs).total);
+template <bool kStamp, int kT>
+__global__ void __launch_bounds__(kTcThreads, 2)
+mmse_equalize_tiled_kernel(const float* __restrict__ H,
+                           const float* __restrict__ Y, float* X,
+                           float* work, unsigned long long* stamps, int m,
+                           int n, int k, int bs, int c, float sigma2,
+                           float eps) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  TiledLane<kStamp> ln(c);
+  const TiledLayout L = tiled_layout(k, bs, kT);
+  float* stage = smem + L.chunk;
+  const int tid = threadIdx.x;
+  const size_t ld = n;
+  const float* h = H + ln.lane * m * ld;
+  const float* yl = Y + ln.lane * m * k;
+  float* g = work + ln.lane * ld * n;
+  float* z = X + ln.lane * n * k;
+  const bool vec4 = n % 4 == 0 && bs % 4 == 0;   // the work buffer's rows
+  const bool h16 = n % 4 == 0 && (reinterpret_cast<uintptr_t>(H) & 15) == 0;
+  // ---- Gram: the lower kT x kT tiles of G = H^T H + sigma2 I, dealt ----
+  const int tiles = ceil_div(n, kT);
+  for (int ti = 0, idx = 0; ti < tiles; ++ti) {
+    for (int tj = 0; tj <= ti; ++tj, ++idx) {
+      if (idx % c != ln.cl.rank) continue;
+      gram_tile<kT>(g, h, n, m, ti * kT, tj * kT, sigma2, h16, stage);
+    }
+  }
+  if (kStamp) __syncthreads();
+  ln.clk.mark(kTpGram);
+  // ---- matched filter z = H^T y, each sum over H's rows in order, the
+  //      elements dealt ----
+  const int stride = kTcThreads * c;   // four elements a thread at once
+  for (int e0 = ln.cl.rank * kTcThreads + tid; e0 < n * k;
+       e0 += 4 * stride) {
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int i[4], q[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int e = min(e0 + g * stride, n * k - 1);
+      i[g] = e % n;
+      q[g] = e / n;
+    }
+    for (int p = 0; p < m; ++p) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        s[g] += h[p * ld + i[g]] * yl[p * static_cast<size_t>(k) + q[g]];
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      if (e0 + g * stride < n * k) z[i[g] * static_cast<size_t>(k) + q[g]] = s[g];
+  }
+  ln.cl.sync();                 // G and z whole
+  ln.clk.mark(kTpFilter);
+  // ---- threshold from G's diagonal (the reference's running maximum
+  //      starts at 0), every rank ----
+  float dmax = 0.0f;
+  for (int i = tid; i < n; i += kTcThreads)
+    dmax = nan_max(dmax, __ldcg(g + i * ld + i));
+  dmax = block_max(dmax, smem + L.red);
+  const float thresh = isnan(dmax) ? NAN : fmaxf(eps * dmax, kPivotFloor);
+  ln.clk.mark(kTpLoad);
+  tiled_factor<kT>(g, g, z, n, k, bs, thresh, vec4, vec4, ln.cl, smem,
+                   ln.clk);
+  tiled_backsub<kT>(g, z, n, k, bs, vec4, ln.cl, smem, ln.clk);
+  if (kStamp) ln.clk.write(stamps + ln.lane * kTiledStampWords);
+}
+
+template <bool kStamp>
+int launch(const void* h, const void* y, void* x, void* work,
+           unsigned long long* stamps, int batch, int m, int n, int k,
+           int bs, float sigma2, float eps, int c, int tile, int smem,
+           void* stream) {
+  if (m < n || !tiled_plan_ok(n, k, bs, c, tile, smem))
+    return cudaErrorInvalidValue;
+  const auto kernel = tile == 128 ? mmse_equalize_tiled_kernel<kStamp, 128>
+                                  : mmse_equalize_tiled_kernel<kStamp, 64>;
+  return cluster_launch(kernel, batch, c, kTcThreads, smem, stream,
+                        static_cast<const float*>(h),
+                        static_cast<const float*>(y), static_cast<float*>(x),
+                        static_cast<float*>(work), stamps, m, n, k, bs, c,
+                        sigma2, eps);
 }
 
 }  // namespace
@@ -96,28 +145,36 @@ size_t smem_bytes(int k, int bs) {
 
 extern "C" {
 
-// Independent of m and n: H and G stream through device memory.
-size_t mmse_equalize_tiled_smem(int m, int n, int k, int bs) {
-  (void)m;
-  (void)n;
-  return repro_torch::smem_bytes(k, bs);
-}
-
 // h (batch, m, n) with m >= n, y (batch, m, k) -> x (batch, n, k), float32;
-// work: batch * n * n floats; n % bs == 0.
+// work: batch * n * n floats; n % bs == 0; the plan (c, tile, smem) must be
+// chol_tiled_plan's formula.
 int mmse_equalize_tiled_f32(const void* h, const void* y, void* x,
                             void* work, int batch, int m, int n, int k,
-                            int bs, float sigma2, float eps, void* stream) {
+                            int bs, float sigma2, float eps, int c, int tile,
+                            int smem, void* stream) {
+  return repro_torch::launch<false>(h, y, x, work, nullptr, batch, m, n, k,
+                                    bs, sigma2, eps, c, tile, smem, stream);
+}
+
+// The same solve with the phase stamps (phase_clock.cuh): stamps holds
+// batch * kTiledStampWords words.  Only scripts/chol_tiled_phases.py
+// launches it.
+int mmse_equalize_tiled_phases_f32(const void* h, const void* y, void* x,
+                                   void* work, void* stamps, int batch,
+                                   int m, int n, int k, int bs, float sigma2,
+                                   float eps, int c, int tile, int smem,
+                                   void* stream) {
+  return repro_torch::launch<true>(
+      h, y, x, work, static_cast<unsigned long long*>(stamps), batch, m, n,
+      k, bs, sigma2, eps, c, tile, smem, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the served instance of a plan.
+int mmse_equalize_tiled_clusters(int c, int tile, int smem) {
   using namespace repro_torch;
-  const size_t smem = smem_bytes(k, bs);
-  cudaError_t err = allow_smem(mmse_equalize_tiled_kernel, smem);
-  if (err != cudaSuccess) return err;
-  mmse_equalize_tiled_kernel<<<batch, kTileThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h), static_cast<const float*>(y),
-      static_cast<float*>(x), static_cast<float*>(work), m, n, k, bs,
-      sigma2, eps);
-  return cudaGetLastError();
+  const auto kernel = tile == 128 ? mmse_equalize_tiled_kernel<false, 128>
+                                  : mmse_equalize_tiled_kernel<false, 64>;
+  return cluster_occupancy(kernel, c, kTcThreads, smem);
 }
 
 }  // extern "C"

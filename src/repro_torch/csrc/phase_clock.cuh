@@ -1,13 +1,14 @@
-// Phase stamps of the large-n Householder solves (K11, K13).
+// Phase stamps of the large-n Householder solves (K11, K13) and of the
+// tiled Cholesky solves (K12, K14).
 //
 // An instance compiled with kOn = true reads clock64() on thread 0 of the
 // lane's first CTA at each phase edge, each edge right after a barrier
 // that ends the phase, and adds the cycles since the previous edge to that
 // phase's sum.  So the phases tile the lane's time from its first stamp to
 // its last: the sums add up to end - start exactly.  Only the phase-timing
-// entry points (``*_phases_f32``), which scripts/qr_phases.py calls, launch
-// such an instance; the served instances compile kOn = false, where every
-// call below is empty.
+// entry points (``*_phases_f32``), which scripts/qr_phases.py and
+// scripts/chol_tiled_phases.py call, launch such an instance; the served
+// instances compile kOn = false, where every call below is empty.
 #pragma once
 
 namespace repro_torch {
@@ -23,9 +24,20 @@ enum QrPhase { kPhaseLoad, kPhasePanel, kPhaseVt, kPhaseApply,
 // Per lane: start, end, then the kQrPhases sums (cycles of the SM clock).
 constexpr int kQrStampWords = 2 + kQrPhases;
 
-template <bool kOn>
+// The tiled Cholesky core (tiled_chol.cuh): the load (A's lower triangle
+// copied in, or K14's threshold), K14's Gram and matched filter; per
+// panel the diagonal block (its copy in and its corners and rows, "diag",
+// and its rank-4 updates, "update"), the rows of L21 (the column walk,
+// "walk", and the rest: their copy in, scale, stores and rows of y,
+// "rows") and the trailing update; per slab of the back substitution its
+// sums over the rows below and its diagonal block's solve.
+enum TiledPhase { kTpLoad, kTpGram, kTpFilter, kTpDiag, kTpUpdate, kTpWalk,
+                  kTpRows, kTpTrail, kTpSums, kTpBacksub, kTiledPhases };
+constexpr int kTiledStampWords = 2 + kTiledPhases;
+
+template <bool kOn, int kPhases = kQrPhases>
 struct PhaseClock {
-  long long start = 0, last = 0, sum[kQrPhases] = {};
+  long long start = 0, last = 0, sum[kPhases] = {};
   bool owner = false;
 
   __device__ explicit PhaseClock(bool lane_owner) {
@@ -34,7 +46,7 @@ struct PhaseClock {
       if (owner) start = last = clock64();
     }
   }
-  __device__ void mark(QrPhase p) {
+  __device__ void mark(int p) {
     if (kOn && owner) {
       const long long now = clock64();
       sum[p] += now - last;
@@ -45,7 +57,7 @@ struct PhaseClock {
     if (kOn && owner) {
       out[0] = static_cast<unsigned long long>(start);
       out[1] = static_cast<unsigned long long>(last);
-      for (int p = 0; p < kQrPhases; ++p)
+      for (int p = 0; p < kPhases; ++p)
         out[2 + p] = static_cast<unsigned long long>(sum[p]);
     }
   }

@@ -72,6 +72,7 @@
 
 #include <cstddef>
 
+#include "cluster_launch.cuh"
 #include "lane_common.cuh"
 #include "phase_clock.cuh"
 #include "tile_loops.cuh"
@@ -722,41 +723,6 @@ qr_cluster_kernel(const float* __restrict__ A, const float* __restrict__ B,
                                          reinterpret_cast<float*>(smem4));
 }
 
-// The launch configuration of batch lanes of c CTAs each (the cluster
-// dimension in attr), smem bytes of dynamic shared memory a CTA.
-inline cudaLaunchConfig_t qc_config(int batch, int c, int smem,
-                                    cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(batch) * c);
-  cfg.blockDim = dim3(kQcThreads);
-  cfg.dynamicSmemBytes = smem;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <bool kStamp, bool kBandsInWork, int kMinBlocks>
-inline int qc_launch_as(const float* a, const float* b, float* x,
-                        float* work, unsigned long long* stamps, int batch,
-                        int m, int n, int k, int bs, float tiny, int c,
-                        int smem, void* stream) {
-  const auto kernel = qr_cluster_kernel<kStamp, kBandsInWork, kMinBlocks>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = qc_config(batch, c, smem, attr);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  err = cudaLaunchKernelEx(&cfg, kernel, a, b, x, work, stamps, m, n, k, bs,
-                           c, tiny);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // One launch of qr_cluster_kernel on batch lanes of c CTAs each
 // (cudaLaunchKernelEx with the cluster dimension), smem bytes of dynamic
 // shared memory a CTA; refuses a plan off qc_plan_ok.
@@ -767,11 +733,14 @@ inline int qc_launch(const void* a, const void* b, void* x, void* work,
                      int smem, void* stream) {
   if (!qc_plan_ok(m, n, k, bs, c, band_shared, smem))
     return cudaErrorInvalidValue;
-  const auto launch = band_shared ? qc_launch_as<kStamp, false, kMinBlocks>
-                                  : qc_launch_as<kStamp, true, kMinBlocks>;
-  return launch(static_cast<const float*>(a), static_cast<const float*>(b),
-                static_cast<float*>(x), static_cast<float*>(work), stamps,
-                batch, m, n, k, bs, tiny, c, smem, stream);
+  const auto kernel = band_shared
+                          ? qr_cluster_kernel<kStamp, false, kMinBlocks>
+                          : qr_cluster_kernel<kStamp, true, kMinBlocks>;
+  return cluster_launch(kernel, batch, c, kQcThreads, smem, stream,
+                        static_cast<const float*>(a),
+                        static_cast<const float*>(b), static_cast<float*>(x),
+                        static_cast<float*>(work), stamps, m, n, k, bs, c,
+                        tiny);
 }
 
 // cudaOccupancyMaxActiveClusters of the served instance of a plan (c,
@@ -782,20 +751,7 @@ inline int qc_max_clusters(int c, int band_shared, int smem) {
   const auto kernel = band_shared
                           ? qr_cluster_kernel<false, false, kMinBlocks>
                           : qr_cluster_kernel<false, true, kMinBlocks>;
-  if (cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return -1;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      qc_config(kQcMaxCluster * 16, c, smem, attr);
-  int clusters = -1;
-  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) !=
-      cudaSuccess) {
-    cudaGetLastError();
-    return -1;
-  }
-  return clusters;
+  return cluster_occupancy(kernel, c, kQcThreads, smem);
 }
 
 }  // namespace repro_torch

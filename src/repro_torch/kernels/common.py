@@ -36,7 +36,8 @@ import torch
 __all__ = ["resolve_device", "on_hopper", "sample_spd", "check_f32",
            "check_tensors",
            "CudaKernel", "KERNELS", "load_library", "build_library",
-           "MAX_SMEM_BYTES", "data_ptr"]
+           "MAX_SMEM_BYTES", "data_ptr", "clusters_at_once",
+           "cluster_occupancy"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -46,6 +47,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "librepro_torch_kernels.so"
 # Dynamic shared memory one block may use on sm_90 (227 KB).
 MAX_SMEM_BYTES = 232448
+# Shared memory of one SM on sm_90 (228 KB), of which each resident block
+# also holds 1 KB.
+SM_SMEM_BYTES = 233472
+# Clusters an H100 SXM (132 SMs) holds at once, by the CTAs an SM holds
+# and the cluster size: cudaOccupancyMaxActiveClusters, which places a
+# cluster within one GPC, so clusters of 4 and 8 leave SMs idle.  The
+# CPU's stand-in for the card's own answer (clusters_at_once).
+H100_CLUSTERS_AT_ONCE = {1: {1: 132, 2: 66, 4: 30, 8: 15},
+                         2: {1: 264, 2: 132, 4: 62, 8: 30}}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -325,3 +335,32 @@ def data_ptr(t: torch.Tensor | None):
 
 KERNELS: list[CudaKernel] = []
 """Every kernel of the package, in registration (import) order."""
+
+
+def cluster_occupancy(symbol: str, *args: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of a cluster kernel's served
+    instance at a plan, through its C entry ``symbol(plan...) -> int``
+    (-1 where the query fails)."""
+    fn = getattr(load_library(), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    return int(fn(*args))
+
+
+def clusters_at_once(query, clusters: int, smem_bytes: int,
+                     min_blocks: int, static_bytes: int = 0) -> int:
+    """Clusters of ``clusters`` CTAs of ``smem_bytes`` dynamic (and
+    ``static_bytes`` static) shared memory each the card holds at once:
+    on a machine with a card ``query()``, its
+    ``cudaOccupancyMaxActiveClusters``; on the CPU an H100's
+    (:data:`H100_CLUSTERS_AT_ONCE` at the CTAs an SM holds by shared
+    memory, at most the instance's launch bound ``min_blocks``)."""
+    if torch.cuda.is_available():
+        at_once = query()
+        if at_once < 1:
+            raise RuntimeError(f"the card holds no cluster of {clusters} "
+                               f"CTAs of {smem_bytes} bytes")
+        return at_once
+    per_sm = min(min_blocks,
+                 SM_SMEM_BYTES // (smem_bytes + static_bytes + 1024))
+    return H100_CLUSTERS_AT_ONCE[per_sm][clusters]

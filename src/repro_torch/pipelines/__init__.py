@@ -36,7 +36,8 @@ version (``*_plain``), and a device-taking public wrapper.  The kernel
 registry (``repro_torch.kernels``) binds them to the serving stack.
 """
 from repro_torch.pipelines.cholesky_solve import (  # noqa: F401
-    TILED_VMEM_BUDGET_BYTES, chol_panel_plan, cholesky_solve,
+    TILED_VMEM_BUDGET_BYTES, CholTiledPlan, chol_panel_plan,
+    chol_tiled_forms, chol_tiled_plan, cholesky_solve,
     cholesky_solve_blocked,
     cholesky_solve_blocked_fits, cholesky_solve_blocked_fused,
     cholesky_solve_blocked_plain, cholesky_solve_fused, cholesky_solve_plain, cholesky_solve_tiled,

@@ -24,6 +24,8 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -138,11 +140,11 @@ PANEL_WIDTH = 32             # the widest panel a plan picks (the C entries
 # budget is the card's own limit, never common.MAX_SMEM_BYTES, which
 # decides the form and which tests lower to 0 to force the global form.
 PANEL_SMEM_BYTES = 232448
-# Shared memory of one SM on sm_90 (228 KB), of which each resident block
-# also holds 1 KB.  A plan narrows its panel until three lanes share an
-# SM: at n = 1024 a 32-wide panel (135 KB) leaves one lane an SM waiting
-# at the panel's barriers, and a 16-wide one reads faster (PERF.md, PR 22).
-SM_SMEM_BYTES = 233472
+# A plan narrows its panel until three lanes share an SM
+# (common.SM_SMEM_BYTES): at n = 1024 a 32-wide panel (135 KB) leaves one
+# lane an SM waiting at the panel's barriers, and a 16-wide one reads
+# faster (PERF.md, PR 22).
+SM_SMEM_BYTES = common.SM_SMEM_BYTES
 PANEL_SMEM_TARGET = SM_SMEM_BYTES // 3 - 1024
 
 
@@ -513,10 +515,216 @@ def cholesky_solve_tiled_plain(a: torch.Tensor, b: torch.Tensor, *,
     return tiled_chain_plain(slabs, b, bs=bs, thresh=thresh)
 
 
+# ---------------------------------------------------------------------------
+# K12 and K14 on a thread-block cluster (csrc/tiled_chol.cuh)
+# ---------------------------------------------------------------------------
+
+TILED_CLUSTER_SIZES = (1, 2, 4, 8)   # CTAs a lane (portable cluster sizes)
+TILED_TILES = (64, 128)              # the wide product tile's edge
+TILED_THREADS = 256                  # a CTA (the wide tile's block)
+TILED_ROW_CHUNK = 64                 # rows of L21 a pass (kRowChunk)
+TILED_MAX_PANEL = 256                # bs, at most (kTcMaxPanel)
+TILED_MIN_BLOCKS = 2                 # CTAs an SM the instances ask ptxas for
+TILED_KERNELS = ("cholesky_solve_tiled", "mmse_equalize_tiled")
+
+
+class CholTiledPlan(NamedTuple):
+    """How K12 and K14 run a lane: on a cluster of ``clusters`` CTAs of
+    ``threads`` threads and ``smem_bytes`` of dynamic shared memory each,
+    the products in ``tile`` x ``tile`` wide tiles; the matrix in the
+    lane's device work buffer, the right-hand sides in the output."""
+    clusters: int
+    threads: int
+    smem_bytes: int
+    tile: int
+
+
+def _align4(floats: int) -> int:
+    return -(-floats // 4) * 4
+
+
+def chol_tiled_smem(k: int, bs: int, tile: int) -> int:
+    """Dynamic shared memory of a CTA (``tiled_layout`` in
+    ``csrc/tiled_chol.cuh``): the diagonal block (bs rows of pitch
+    align4(bs) + 4), the pivots' rsqrt, its rows of y in work and
+    finished (bs x k each), the rows of L21 (64 rows of the block's pitch)
+    or the wide tile's two stages (2 x 2 x 2048 floats), whichever is
+    larger, their rows of y (64 x k) and 32 floats of reduction scratch.
+    Independent of n and m."""
+    pb = _align4(bs) + 4
+    yb = bs * pb + _align4(bs)
+    chunk = _align4(_align4(yb + bs * k) + bs * k)
+    wide = 2 * 2 * (2048 // tile) * tile
+    return 4 * (chunk + max(TILED_ROW_CHUNK * pb, wide)
+                + TILED_ROW_CHUNK * k + 32)
+
+
+def _check_tiled_shape(n: int, k: int, bs: int, kernel: str,
+                       m: int | None) -> None:
+    if kernel not in TILED_KERNELS:
+        raise ValueError(f"chol_tiled_plan: kernel {kernel!r}")
+    if not (1 <= bs <= TILED_MAX_PANEL and n % bs == 0 and k >= 1
+            and (kernel == "cholesky_solve_tiled" or (m or 0) >= n)):
+        raise ValueError(f"chol_tiled_plan: {kernel} n = {n}, k = {k}, "
+                         f"bs = {bs}, m = {m}")
+
+
+def chol_tiled_forms(n: int, k: int, bs: int,
+                     kernel: str = "cholesky_solve_tiled",
+                     m: int | None = None) -> list:
+    """Every plan K12 (``kernel`` "cholesky_solve_tiled") or K14
+    ("mmse_equalize_tiled", ``m`` channel rows) can run at (n, k, bs):
+    each cluster size and each tile whose CTA fits the card's shared
+    memory.  They all give the same bits."""
+    _check_tiled_shape(n, k, bs, kernel, m)
+    out = [CholTiledPlan(c, TILED_THREADS, chol_tiled_smem(k, bs, t), t)
+           for c in TILED_CLUSTER_SIZES for t in TILED_TILES
+           if chol_tiled_smem(k, bs, t) <= PANEL_SMEM_BYTES]
+    if not out:
+        raise ValueError(f"chol_tiled_plan: {kernel} k = {k}, bs = {bs} "
+                         f"fits no CTA's shared memory")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def chol_tiled_clusters_at_once(kernel: str, plan: CholTiledPlan) -> int:
+    """Clusters of ``plan`` the card holds at once for K12 or K14: the
+    card's ``cudaOccupancyMaxActiveClusters`` (asked once a plan), an
+    H100's on the CPU (``common.clusters_at_once``)."""
+    return common.clusters_at_once(
+        lambda: chol_tiled_occupancy(kernel, plan), plan.clusters,
+        plan.smem_bytes, TILED_MIN_BLOCKS)
+
+
+def chol_tiled_occupancy(kernel: str, plan: CholTiledPlan) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K12 (``kernel``
+    "cholesky_solve_tiled") or K14 ("mmse_equalize_tiled") at ``plan``
+    (-1 where the query fails)."""
+    return common.cluster_occupancy(kernel + "_clusters", plan.clusters,
+                                    plan.tile, plan.smem_bytes)
+
+
+def chol_tiled_deal(units: int, c: int) -> list:
+    """The units (tiles, chunks of rows, elements) each of ``c`` ranks
+    takes when ``units`` are dealt round robin, unit u to rank u % c, as
+    the kernels deal the Gram's and the trailing update's tiles and the
+    chunks of L21."""
+    return [list(range(r, units, c)) for r in range(c)]
+
+
+def chol_tiled_rows_of(bs: int, c: int) -> list:
+    """The rows [j0, j1) of a slab whose back-substitution sums each of
+    ``c`` ranks takes: contiguous blocks of ceil(bs / c)."""
+    per = -(-bs // c)
+    return [(min(bs, r * per), min(bs, r * per + per)) for r in range(c)]
+
+
+# A lane's SM cycles on a plan (chol_lane_cycles): each phase's cycles a
+# unit of its work on the longest rank (chol_lane_units), at each product
+# tile (the 128 tile's instance spills registers, so every phase of it
+# prices apart; "sync" fits to 0 there, its barriers hidden in the other
+# prices), fitted to the sweep of every form of K12 and K14 at
+# their main shapes by `scripts/chol_tiled_phases.py --forms --fit` on an
+# H100 (PERF.md): "diag" a column of the diagonal blocks (every rank),
+# "rows" an element of bs x bs a chunk of L21's rows, "trail" / "gram" a
+# tile element a depth step, "filter" a matched-filter depth step, "sums"
+# a row of the back substitution's sums, "solve" a column of its diagonal
+# blocks, "load" an element of A's lower triangle, "sync" a cluster
+# barrier a log2 C.
+CHOL_LANE_CYCLES = {
+    "diag": {64: 860.9, 128: 1099.0}, "rows": {64: 3.288, 128: 4.356},
+    "trail": {64: 0.04567, 128: 0.03232},
+    "gram": {64: 0.03019, 128: 0.02405},
+    "filter": {64: 127.8, 128: 134.4}, "sums": {64: 78.56, 128: 86.72},
+    "solve": {64: 332.5, 128: 354.3}, "load": {64: 0.05154, 128: 0.05272},
+    "sync": {64: 1188.0, 128: 0.0}}
+
+
+def chol_lane_units(n: int, k: int, bs: int, plan: CholTiledPlan,
+                    kernel: str = "cholesky_solve_tiled",
+                    m: int | None = None) -> dict:
+    """The work of one lane of K12 / K14 at (n, k), panels of ``bs``, on
+    ``plan``, phase by phase, on the rank that takes the most of it by the
+    kernels' deal (:func:`chol_tiled_deal`, :func:`chol_tiled_rows_of`):
+    the units :data:`CHOL_LANE_CYCLES` prices."""
+    c, t = plan.clusters, plan.tile
+
+    def most(units):            # the longest rank's share, dealt round robin
+        return len(chol_tiled_deal(units, c)[0])
+
+    j0, j1 = chol_tiled_rows_of(bs, c)[0]
+    passes = -(-(j1 - j0) * k // TILED_THREADS)
+    units = {"diag": n, "solve": n, "rows": 0, "trail": 0, "sums": 0,
+             "gram": 0, "filter": 0, "load": 0,
+             "sync": (4 * n // bs + 1) * math.log2(c)}
+    for o in range(0, n, bs):
+        rest = n - o - bs
+        units["rows"] += most(-(-rest // TILED_ROW_CHUNK)) * bs * bs
+        tiles = -(-rest // t)
+        units["trail"] += most(tiles * (tiles + 1) // 2) * t * t * bs
+        units["sums"] += passes * rest
+    if kernel == "mmse_equalize_tiled":
+        tiles = -(-n // t)
+        units["gram"] = most(tiles * (tiles + 1) // 2) * t * t * m
+        units["filter"] = -(-n * k // (TILED_THREADS * c)) * m
+    else:
+        units["load"] = n * (n + 1) / 2 / c
+    return units
+
+
+def chol_lane_cycles(n: int, k: int, bs: int, plan: CholTiledPlan,
+                     kernel: str = "cholesky_solve_tiled",
+                     m: int | None = None) -> float:
+    """The modelled SM cycles of one lane of K12 / K14 at (n, k), panels
+    of ``bs``, on ``plan``: :func:`chol_lane_units` priced by
+    :data:`CHOL_LANE_CYCLES`."""
+    return sum(units * CHOL_LANE_CYCLES[phase][plan.tile]
+               for phase, units in chol_lane_units(n, k, bs, plan, kernel,
+                                                   m).items())
+
+
+def chol_tiled_plan(batch: int, n: int, k: int, bs: int,
+                    kernel: str = "cholesky_solve_tiled",
+                    m: int | None = None) -> CholTiledPlan:
+    """The one plan of K12 (``kernel`` "cholesky_solve_tiled") or K14
+    ("mmse_equalize_tiled", ``m`` channel rows) for ``batch`` lanes at
+    (n, k) with panels of ``bs``: of the shape's forms
+    (:func:`chol_tiled_forms`), the one whose waves of the clusters the
+    card holds at once (:func:`chol_tiled_clusters_at_once`) times its
+    modelled lane (:func:`chol_lane_cycles`) is least, the smaller
+    cluster and then the wider tile on a tie.  A larger cluster deals a
+    lane's rows, tiles and sums over more SMs but not its diagonal
+    blocks, adds its barriers, and leaves SMs idle where it does not
+    divide a GPC; so a carrier's width runs one CTA a lane and the 32
+    lanes the slot mixes serve a cluster of several.  Shapes, batch and
+    the card alone decide it."""
+    def cost(plan):
+        at_once = chol_tiled_clusters_at_once(kernel, plan)
+        waves = -(-batch // at_once)
+        return (waves * chol_lane_cycles(n, k, bs, plan, kernel, m),
+                plan.clusters, -plan.tile)
+    return min(chol_tiled_forms(n, k, bs, kernel, m), key=cost)
+
+
+def chol_tiled_check(kernel: str, plan: CholTiledPlan | None, batch: int,
+                     n: int, k: int, bs: int,
+                     m: int | None = None) -> CholTiledPlan:
+    """The plan of a K12 / K14 call: ``plan`` if it is one of the shape's
+    forms (ValueError where it is not, on every device), else
+    :func:`chol_tiled_plan`'s."""
+    if plan is None:
+        return chol_tiled_plan(batch, n, k, bs, kernel, m)
+    if plan not in chol_tiled_forms(n, k, bs, kernel, m):
+        raise ValueError(f"{kernel}: {plan} is not a form of n = {n}, "
+                         f"k = {k}, bs = {bs}, m = {m}")
+    return plan
+
+
 _TILED = CudaKernel(
     "cholesky_solve_tiled", "cholesky_solve_tiled_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float],
-    "cholesky_solve_tiled_smem", 3,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    + [ctypes.c_int] * 3,
+    None, 1,
     source="src/repro_torch/csrc/cholesky_solve_tiled.cu",
     replaces="src/repro/pipelines/cholesky_solve.py:503 "
              "cholesky_solve_tiled",
@@ -525,14 +733,17 @@ _TILED = CudaKernel(
 
 def cholesky_solve_tiled_fused(a: torch.Tensor, b: torch.Tensor, *,
                                bs: int | None = None,
-                               eps: float = DEFAULT_EPS) -> torch.Tensor:
+                               eps: float = DEFAULT_EPS,
+                               plan: CholTiledPlan | None = None
+                               ) -> torch.Tensor:
     """Slab-streamed SPD solve — the HBM-scale path (the registry's
     ``tiled`` variant, n >= 512 with n % 32 == 0).  Same contract as
     :func:`cholesky_solve_fused`; slabs of ``bs`` columns (default
     :func:`tiled_block_size`), refused with ValueError where the
-    reference asserts.  K12 on a CUDA tensor (one launch, L in a device
-    work buffer, shared memory independent of n), its plain version on a
-    CPU one."""
+    reference asserts.  K12 on a CUDA tensor (one cluster launch on
+    ``plan``, default :func:`chol_tiled_plan`; L in a device work
+    buffer, shared memory independent of n), its plain version on a CPU
+    one.  Every plan gives the same bits."""
     bsz, n, n2 = a.shape
     b2, n3, m = b.shape
     if not (n == n2 == n3 and bsz == b2):
@@ -541,13 +752,15 @@ def cholesky_solve_tiled_fused(a: torch.Tensor, b: torch.Tensor, *,
     bs = tiled_admit("cholesky_solve_tiled", n, bs,
                      lambda w: tiled_vmem_floats(n, w, m))
     dev = check_f32("cholesky_solve_tiled", a, b)
+    plan = chol_tiled_check("cholesky_solve_tiled", plan, bsz, n, m, bs)
     if dev.type == "cpu":
         return cholesky_solve_tiled_plain(a, b, bs=bs, eps=eps)
     x = torch.empty_like(b)
     if bsz:
         work = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
-        _TILED.launch(dev, (n, m, bs), a.data_ptr(), b.data_ptr(),
-                      x.data_ptr(), work.data_ptr(), bsz, n, m, bs, eps)
+        _TILED.launch(dev, (plan.smem_bytes,), a.data_ptr(), b.data_ptr(),
+                      x.data_ptr(), work.data_ptr(), bsz, n, m, bs, eps,
+                      plan.clusters, plan.tile, plan.smem_bytes)
     return x
 
 
@@ -558,3 +771,70 @@ def cholesky_solve_tiled(a, b, *, bs: int | None = None,
     return cholesky_solve_tiled_fused(
         torch.as_tensor(a, device=dev).contiguous(),
         torch.as_tensor(b, device=dev).contiguous(), bs=bs)
+
+
+# ---------------------------------------------------------------------------
+# The phase stamps of K12 and K14 (csrc/phase_clock.cuh)
+# ---------------------------------------------------------------------------
+
+TILED_PHASES = ("load", "gram", "filter", "diag", "update", "walk", "rows",
+                "trail", "sums", "backsub")
+"""The phases a stamped K12 / K14 lane is split into
+(``csrc/phase_clock.cuh``): the load (K12: A's lower triangle copied into
+the work buffer and the threshold; K14: the threshold from G's
+diagonal), K14's Gram and matched filter; summed over the panels the
+diagonal block (its copy in, corners and rows: "diag"; its rank-4
+updates: "update"), the rows of L21 (the column walk: "walk"; their copy
+in, scale, stores and rows of y: "rows") and the trailing update; summed
+over the back substitution's slabs its sums over the rows below ("sums")
+and its diagonal block's solve ("backsub").  Each ends at a barrier,
+waits included, so they add up to the lane."""
+
+
+def chol_tiled_phases(name: str, a: torch.Tensor, b: torch.Tensor, *,
+                      bs: int | None = None, sigma2: float = 0.1,
+                      eps: float = DEFAULT_EPS,
+                      plan: CholTiledPlan | None = None):
+    """K12 (``name`` "cholesky_solve_tiled", ``a`` A and ``b`` B) or K14
+    ("mmse_equalize_tiled", ``a`` H and ``b`` y) through its
+    phase-stamped instance on ``plan`` (default :func:`chol_tiled_plan`),
+    on CUDA tensors: returns (x, stamps), the stamps a (batch, 2 +
+    len(TILED_PHASES)) int64 tensor of each lane's first and last SM
+    clock on its cluster's first CTA and the cycles of each phase, which
+    add up to last - first.  Not a launch of the kernel's counted entry
+    (the served instance compiles the stamps out)."""
+    dev = check_f32(name, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the phase stamps run on the card")
+    bsz, m, n = a.shape
+    k = b.shape[-1]
+    if name == "cholesky_solve_tiled":
+        bs = tiled_admit(name, n, bs, lambda w: tiled_vmem_floats(n, w, k))
+        plan = chol_tiled_check(name, plan, bsz, n, k, bs)
+        dims = [bsz, n, k, bs]
+        scalars = [eps]
+    else:
+        from repro_torch.pipelines.mmse import mmse_tiled_vmem_floats
+        bs = tiled_admit(name, n, bs,
+                         lambda w: mmse_tiled_vmem_floats(m, n, w, k))
+        plan = chol_tiled_check(name, plan, bsz, n, k, bs, m)
+        dims = [bsz, m, n, k, bs]
+        scalars = [sigma2, eps]
+    work = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
+    x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
+    stamps = torch.zeros((bsz, 2 + len(TILED_PHASES)), dtype=torch.int64,
+                         device=dev)
+    fn = getattr(common.load_library(), name + "_phases_f32")
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * len(dims)
+                   + [ctypes.c_float] * len(scalars) + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(a.data_ptr(), b.data_ptr(), x.data_ptr(), work.data_ptr(),
+                 stamps.data_ptr(), *dims, *scalars, plan.clusters,
+                 plan.tile, plan.smem_bytes,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        msg = common.load_library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: phase-stamped launch failed: {msg}")
+    return x, stamps

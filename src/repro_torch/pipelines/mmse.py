@@ -41,6 +41,8 @@ import torch
 from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
 from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
+                                                  CholTiledPlan,
+                                                  chol_tiled_check,
                                                   cholesky_chain_plain,
                                                   cholesky_solve_unfused,
                                                   global_plan_args,
@@ -261,22 +263,26 @@ def mmse_equalize_tiled_plain(h: torch.Tensor, y: torch.Tensor, *,
 
 _TILED_KERNEL = CudaKernel(
     "mmse_equalize_tiled", "mmse_equalize_tiled_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2,
-    "mmse_equalize_tiled_smem", 4,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+    + [ctypes.c_int] * 3,
+    None, 1,
     source="src/repro_torch/csrc/mmse_equalize_tiled.cu",
     replaces="src/repro/pipelines/mmse.py:333 mmse_equalize_tiled")
 
 
 def mmse_equalize_tiled_fused(h: torch.Tensor, y: torch.Tensor, *,
                               bs: int | None = None, sigma2: float = 0.1,
-                              eps: float = DEFAULT_EPS) -> torch.Tensor:
+                              eps: float = DEFAULT_EPS,
+                              plan: CholTiledPlan | None = None
+                              ) -> torch.Tensor:
     """Slab-streamed MMSE equalizer — the HBM-scale path (the registry's
     ``tiled`` variant, n >= 512 with n % 32 == 0).  Same contract as
     :func:`mmse_equalize_fused`; slabs of ``bs`` columns (default
     ``tiled_block_size``), refused with ValueError where the reference
-    asserts.  K14 on a CUDA tensor (one launch: the lower Gram blocks
-    into a device work buffer, then K12's phases over it), its plain
-    version on a CPU one."""
+    asserts.  K14 on a CUDA tensor (one cluster launch on ``plan``,
+    default ``chol_tiled_plan``: the lower Gram tiles into a device work
+    buffer, then K12's phases over it), its plain version on a CPU one.
+    Every plan gives the same bits."""
     bsz, m, n = h.shape
     b2, m2, k = y.shape
     if not (m == m2 and bsz == b2 and m >= n):
@@ -285,15 +291,17 @@ def mmse_equalize_tiled_fused(h: torch.Tensor, y: torch.Tensor, *,
     bs = tiled_admit("mmse_equalize_tiled", n, bs,
                      lambda w: mmse_tiled_vmem_floats(m, n, w, k))
     dev = check_f32("mmse_equalize_tiled", h, y)
+    plan = chol_tiled_check("mmse_equalize_tiled", plan, bsz, n, k, bs, m)
     if dev.type == "cpu":
         return mmse_equalize_tiled_plain(h, y, bs=bs, sigma2=sigma2,
                                          eps=eps)
     x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
     if bsz:
         work = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
-        _TILED_KERNEL.launch(dev, (m, n, k, bs), h.data_ptr(),
+        _TILED_KERNEL.launch(dev, (plan.smem_bytes,), h.data_ptr(),
                              y.data_ptr(), x.data_ptr(), work.data_ptr(),
-                             bsz, m, n, k, bs, sigma2, eps)
+                             bsz, m, n, k, bs, sigma2, eps, plan.clusters,
+                             plan.tile, plan.smem_bytes)
     return x
 
 

@@ -35,9 +35,8 @@ from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
 from repro_torch.kernels.qr import qr_fused
 from repro_torch.kernels.trisolve import trisolve_fused
-from repro_torch.pipelines.cholesky_solve import (PANEL_SMEM_BYTES,
-                                                  SM_SMEM_BYTES, block_size,
-                                                  tiled_admit)
+from repro_torch.pipelines.cholesky_solve import (PANEL_SMEM_BYTES, _align4,
+                                                  block_size, tiled_admit)
 
 DEFAULT_TINY = 1e-20
 
@@ -519,10 +518,6 @@ def qr_group_rows(m: int) -> int:
     return 32 * -(-(-(-m // 32)) // QR_GROUP_MAX)
 
 
-def _align4(floats: int) -> int:
-    return -(-floats // 4) * 4
-
-
 def _band_rows(m: int, c: int) -> int:
     """Words of a band column (``qc_band_rows``): a rank's rows of the
     tallest panel, plus one."""
@@ -581,12 +576,6 @@ def qr_cluster_forms(m: int, n: int, k: int, bs: int) -> list:
     return out
 
 
-# Clusters an H100 SXM (132 SMs) holds at once, by the CTAs an SM holds
-# and the cluster size: cudaOccupancyMaxActiveClusters, which places a
-# cluster within one GPC, so clusters of 4 and 8 leave SMs idle.  The
-# CPU's stand-in for the card's own answer (qr_clusters_at_once).
-H100_CLUSTERS_AT_ONCE = {1: {1: 132, 2: 66, 4: 30, 8: 15},
-                         2: {1: 264, 2: 132, 4: 62, 8: 30}}
 # CTAs an SM each kernel's instance asks ptxas for (__launch_bounds__)
 QR_MIN_BLOCKS = {"qr_solve_blocked": 2, "qr_solve_tiled": 1}
 
@@ -596,17 +585,11 @@ def qr_clusters_at_once(kernel: str, plan: QrClusterPlan) -> int:
     """Clusters of ``plan`` the card holds at once for K11 (``kernel``
     "qr_solve_blocked") or K13 ("qr_solve_tiled"): on a machine with a
     card its ``cudaOccupancyMaxActiveClusters`` (asked once a plan), on
-    the CPU an H100's (:data:`H100_CLUSTERS_AT_ONCE` at the CTAs an SM
-    holds by shared memory, at most the instance's launch bound)."""
-    if torch.cuda.is_available():
-        at_once = qr_cluster_occupancy(kernel, plan)
-        if at_once < 1:
-            raise RuntimeError(f"{kernel}: the card holds no cluster of "
-                               f"{plan}")
-        return at_once
-    per_sm = min(QR_MIN_BLOCKS[kernel],
-                 SM_SMEM_BYTES // (plan.smem_bytes + 2048 + 1024))
-    return H100_CLUSTERS_AT_ONCE[per_sm][plan.clusters]
+    the CPU an H100's (``common.clusters_at_once``; the kernel's static
+    pointer tables take 2 KB)."""
+    return common.clusters_at_once(
+        lambda: qr_cluster_occupancy(kernel, plan), plan.clusters,
+        plan.smem_bytes, QR_MIN_BLOCKS[kernel], 2048)
 
 
 # A lane's SM cycles on a form (qr_lane_cycles), fitted to the sweep of
@@ -698,10 +681,8 @@ def qr_cluster_occupancy(name: str, plan: QrClusterPlan) -> int:
     """``cudaOccupancyMaxActiveClusters`` of K11 (``name``
     "qr_solve_blocked") or K13 ("qr_solve_tiled") at ``plan``: the
     clusters the card holds at once (-1 where the query fails)."""
-    fn = getattr(common.load_library(), name + "_clusters")
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    return int(fn(plan.clusters, int(plan.panel_shared), plan.smem_bytes))
+    return common.cluster_occupancy(name + "_clusters", plan.clusters,
+                                    int(plan.panel_shared), plan.smem_bytes)
 
 
 # ---------------------------------------------------------------------------

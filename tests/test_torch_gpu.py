@@ -3,7 +3,8 @@ their plain PyTorch versions on the same card inputs, K1-K4 and K15-K17
 on lanes past shared memory (their global form; K1-K4's panel chains bit
 for bit their shared forms at every panel width; K16's warp form bit for
 bit its CTA form), the tiled K12-K14 with
-slabs streamed past shared memory, the served DAGs' golden replay, the
+slabs streamed past shared memory (K11-K14 under every cluster form bit
+for bit), the served DAGs' golden replay, the
 launch counts of the unfused baselines and the DSP chain, K17 on a wide
 matrix and K1 on bf16, K18 and K20 at their registry cases and the LM
 shapes (K18's bf16 tensor-core form and float32 SIMT form at ragged,
@@ -743,14 +744,140 @@ def test_tiled_cholesky_guards_on_card(hopper):
 # holds its plans to the card's shared memory
 @pytest.mark.parametrize("name", sorted(set(TILED) - {"qr_solve"}))
 def test_tiled_shared_memory_is_independent_of_n(hopper, name):
-    """A tiled CTA's dynamic shared memory depends on bs and k only, and
-    fits a block at bs = 128."""
-    k = next(k for k in KERNELS if k.name == TILED[name][0])
-    dims = {512: (512, 2, 128), 1024: (1024, 2, 128)}
-    if name != "cholesky_solve":
-        dims = {n: (n + 16, n, 2, 128) for n in (512, 1024)}
-    assert k.smem_bytes(*dims[1024]) == k.smem_bytes(*dims[512]) \
-        <= common.MAX_SMEM_BYTES
+    """A tiled CTA's dynamic shared memory depends on bs, k and the plan's
+    product tile only, and fits a block at bs = 128 (every form of
+    chol_tiled_forms, at n = 512 and 1024)."""
+    kernel = TILED[name][0]
+    smem = {n: {(p.tile, p.smem_bytes) for p in tp.chol_tiled_forms(
+        n, 2, 128, kernel, None if name == "cholesky_solve" else n + 16)}
+        for n in (512, 1024)}
+    assert smem[512] == smem[1024]
+    assert all(b <= common.MAX_SMEM_BYTES for _, b in smem[512])
+
+
+# K12 and K14 on thread-block clusters: every plan of chol_tiled_forms
+# (each cluster size and product tile) gives the same bits, at the served
+# shapes, a tall channel and the odd slab widths
+CHOL_TILED_CASES = [("mmse_equalize_tiled", 516, 512, 128),
+                    ("mmse_equalize_tiled", 1028, 1024, 128),
+                    ("mmse_equalize_tiled", 2052, 512, 128),
+                    ("mmse_equalize_tiled", 516, 512, 64),
+                    ("mmse_equalize_tiled", 516, 512, 32),
+                    ("cholesky_solve_tiled", 512, 512, 128),
+                    ("cholesky_solve_tiled", 1024, 1024, 128),
+                    ("cholesky_solve_tiled", 512, 512, 64),
+                    ("cholesky_solve_tiled", 512, 512, 32)]
+CHOL_TILED_PAIRS = {
+    "cholesky_solve_tiled": (tp.cholesky_solve_tiled_fused,
+                             tp.cholesky_solve_tiled_plain, 1e-4),
+    "mmse_equalize_tiled": (tp.mmse_equalize_tiled_fused,
+                            tp.mmse_equalize_tiled_plain, 2e-3)}
+
+
+def _chol_tiled_lanes(dev, kernel, m, n, seed):
+    """Four lanes (numpy seed): K12 lane 1 rank-deficient (column 3n/5 of
+    its factor repeats column 3), lane 2 lane 0 (its right-hand sides
+    too) with NaN in its upper triangle; K14 lane 1 a channel whose
+    column 3n/5 repeats column 3, lane 2 a NaN in H; the others clean."""
+    rng = np.random.default_rng(seed)
+    if kernel == "cholesky_solve_tiled":
+        from repro_torch.kernels.common import sample_spd
+        a = sample_spd(rng, 4, n)
+        f = rng.standard_normal((n, n)).astype(np.float32)
+        f[:, 3 * n // 5] = f[:, 3]
+        a[1] = f @ f.T
+        a[2] = a[0]
+        iu = np.triu_indices(n, 1)
+        a[2][iu] = np.nan
+    else:
+        a = rng.standard_normal((4, m, n)).astype(np.float32)
+        a[1, :, 3 * n // 5] = a[1, :, 3]
+        a[2, m // 3, n // 5] = np.nan
+    b = rng.standard_normal((4, n if m is None else m, 2)).astype(np.float32)
+    if kernel == "cholesky_solve_tiled":
+        b[2] = b[0]
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.parametrize("kernel,m,n,bs", CHOL_TILED_CASES)
+def test_chol_tiled_forms_equal_bit_for_bit(hopper, kernel, m, n, bs):
+    """K12 / K14 under every plan of chol_tiled_forms give C = 1's answer
+    bit for bit, each one launch; the clean lanes are within the spec's
+    rtol of the plain version and the oracle; K12's poisoned upper
+    triangle leaves its lane equal to the clean one, its deficient lane
+    finite; K14's NaN lane leaves its neighbours equal to their clean
+    batch's."""
+    fused, plain, rtol = CHOL_TILED_PAIRS[kernel]
+    k14 = kernel == "mmse_equalize_tiled"
+    a, rhs = _chol_tiled_lanes(hopper, kernel, m if k14 else None, n,
+                               seed=n + bs)
+    forms = tp.chol_tiled_forms(n, 2, bs, kernel, m if k14 else None)
+    assert {p.clusters for p in forms} == {1, 2, 4, 8}
+    outs = []
+    for plan in forms:
+        before = _launches(kernel)
+        outs.append(fused(a, rhs, bs=bs, plan=plan))
+        torch.cuda.synchronize()
+        assert _launches(kernel) == before + 1
+    one = next(o for p, o in zip(forms, outs) if p.clusters == 1)
+    for plan, out in zip(forms, outs):
+        assert torch.equal(_bits(out), _bits(one)), str(plan)
+    from repro_torch.kernels import ref
+    clean = [0, 3]
+    want = plain(a[clean], rhs[clean], bs=bs)
+    assert_close(one[clean].cpu().numpy(), want.cpu().numpy(), rtol=rtol,
+                 name=f"{kernel} {m}x{n} bs={bs}")
+    oracle = (ref.mmse_equalize(a[clean], rhs[clean]) if k14
+              else ref.cholesky_solve(a[clean], rhs[clean]))
+    assert_close(one[clean].cpu().numpy(), oracle.cpu().numpy(), rtol=rtol,
+                 name=f"{kernel} {m}x{n} oracle")
+    assert bool(torch.isfinite(one[1]).all())
+    if k14:
+        again = fused(a[[0, 1, 3]].contiguous(), rhs[[0, 1, 3]].contiguous(),
+                      bs=bs, plan=forms[0])
+        assert torch.equal(_bits(one[[0, 1, 3]]), _bits(again))
+    else:
+        assert torch.equal(_bits(one[2]), _bits(one[0]))
+
+
+def test_chol_tiled_plan_refused_off_its_forms(hopper):
+    """A plan that is not one of the shape's forms raises before any
+    launch; the C entry refuses bytes off its formula."""
+    a, rhs = _card_case(hopper, "cholesky_solve", 2, 512, seed=3)
+    plan = tp.chol_tiled_plan(2, 512, 2, 128)
+    with pytest.raises(ValueError, match="not a form"):
+        tp.cholesky_solve_tiled_fused(a, rhs, plan=plan._replace(tile=96))
+    k = next(k for k in KERNELS if k.name == "cholesky_solve_tiled")
+    x = torch.empty_like(rhs)
+    work = torch.empty((2, 512, 512), device=hopper)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k.launch(hopper, (plan.smem_bytes,), a.data_ptr(), rhs.data_ptr(),
+                 x.data_ptr(), work.data_ptr(), 2, 512, 2, 128, 1e-5,
+                 plan.clusters, plan.tile, plan.smem_bytes + 4)
+
+
+@pytest.mark.parametrize("kernel,m,n,b", [
+    ("cholesky_solve_tiled", 512, 512, 32),
+    ("mmse_equalize_tiled", 516, 512, 32)])
+def test_chol_tiled_phase_stamps_are_ordered_and_cover_the_kernel(
+        hopper, kernel, m, n, b):
+    """The phase-stamped instance gives the served answer bit for bit on
+    every form; each lane's stamps are ordered and its phases add up to
+    its time."""
+    CHm = importlib.import_module("repro_torch.pipelines.cholesky_solve")
+    a, rhs = _card_case(hopper, kernel.removesuffix("_tiled"), b, n, m=m,
+                        seed=5)
+    mm = m if kernel == "mmse_equalize_tiled" else None
+    for plan in tp.chol_tiled_forms(n, 2, 128, kernel, mm):
+        before = _launches(kernel)
+        x, stamps = CHm.chol_tiled_phases(kernel, a, rhs, plan=plan)
+        torch.cuda.synchronize()
+        assert _launches(kernel) == before
+        assert torch.equal(x, CHOL_TILED_PAIRS[kernel][0](a, rhs, plan=plan))
+        st = stamps.cpu()
+        assert st.shape == (b, 2 + len(CHm.TILED_PHASES))
+        assert bool((st[:, 1] > st[:, 0]).all() and (st[:, 2:] >= 0).all())
+        assert torch.equal(st[:, 2:].sum(dim=1), st[:, 1] - st[:, 0])
 
 
 # K11 and K13 on thread-block clusters: every cluster size and both
