@@ -32,7 +32,12 @@ Phases, each fatal on failure:
                rows of 64), at 3276 rows of 1024, of 4096 (the carrier's
                OFDM size, K7's wide route) and of 2.  The SVD is held by
                sorted spectrum and
-               reconstruction, its factors being sign/order ambiguous.
+               reconstruction, its factors being sign/order ambiguous;
+               K8 under every plan of svd_forms (each group size, rows
+               held in registers or read again) bit for bit at the
+               served shapes, 64 lanes of n = 32 and an odd n = 13, on
+               zero, rank-2 and NaN lanes, each lane alone its bits in
+               the batch and svd_factor svd's bits.
                The mid-range path: the blocked K10/K11 at n = 128 and
                256 with both panel widths at B = 3276, and K1-K4 on lanes
                past shared memory (their global form, K3 also at n =
@@ -366,6 +371,11 @@ CHOL_TILED_BITS = (("mmse_equalize_tiled", 516, 512, 128, 4),
 # at n = 8 on the mux's 4 lanes (serve_solvers --pusch) and at n = 24 on
 # 32 lanes (--sizes 24 --lanes 32), (n, lanes), m = n + 4
 SVD_SERVED = ((8, 4), (24, 32))
+# K8 under every plan of svd_forms (each group size g threads a pair):
+# (n, lanes), m = n + 4, at which every form must give the same U, S and V
+# bits, on a zero lane, a rank-2 lane and a NaN lane: the served shapes,
+# 64 lanes of the slot mixes' largest n and an odd n (a phantom column)
+SVD_BITS = ((24, 32), (8, 4), (32, 64), (13, 8))
 # K11 / K13 on thread-block clusters: (kernel, m, n, bs, lanes) at which
 # every plan of qr_cluster_forms (each cluster size, the panel's bands in
 # shared memory and in the device work buffer) must give the same bits,
@@ -1197,6 +1207,21 @@ def main():
             f"{tuple(p)} {KCS.chol_tiled_occupancy(name, p)} at once"
             for p in pp.chol_tiled_forms(n, 2, bs, name, mm)), flush=True)
 
+    # K8: each instance's registers (svd_kernel<g, rows held, stamps>),
+    # and the plan of each shape and batch the script launches it at
+    print("K8 plans (svd.cu, -Xptxas -v; plan (group, threads, held)):",
+          flush=True)
+    ptxas = ptxas_lines(common.build_info["log"], "svd.cu")
+    for i, line in enumerate(ptxas):
+        if "svd_kernel" in line:
+            print(f"  {line.split(chr(39))[1]}: {ptxas[i + 1]}; "
+                  f"{ptxas[i + 2].removeprefix('ptxas info    : ')}",
+                  flush=True)
+    for n, lanes in sorted(set(SVD_SERVED) | set(SVD_BITS)
+                           | {(n, LANES) for n in SLOT_SIZES}):
+        print(f"    {n + 4} x {n} B={lanes}: "
+              f"{tuple(S.svd_plan(lanes, n + 4, n))}", flush=True)
+
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_fused,
              "qr_solve_blocked": pp.qr_solve_blocked_fused,
@@ -1843,6 +1868,57 @@ def main():
             failures.append(f"{name} {m}x{n} bs={bs}: forms {same}, plain "
                             f"{ok}, guards {guard}")
         del ta, tb, outs, one
+
+    # K8 under every plan of svd_forms: one set of U, S and V bits at every
+    # group size; each special lane alone its bits in the batch; the DAG
+    # stage svd's bits; within the spec's rtol of the plain version (by
+    # spectrum and reconstruction) on the clean lanes; the zero lane s = 0
+    # exactly, the rank-2 lane finite (inputs from a generator of their
+    # own, so every other check keeps its draw)
+    sgen = torch.Generator(device=dev)
+    sgen.manual_seed(6)
+
+    def svd_bits(factors):
+        return torch.cat([t.reshape(-1).view(torch.int32) for t in factors])
+
+    for n, b in SVD_BITS:
+        m = n + 4
+        sa = grand(b, m, n, g=sgen)
+        sa[1] = 0.0
+        sa[2] = grand(m, 2, g=sgen) @ grand(2, n, g=sgen)
+        sa[3, n // 3, n // 5] = float("nan")
+        forms = S.svd_forms(m, n)
+        outs = [S.svd_fused(sa, SWEEPS, plan=plan) for plan in forms]
+        same = all(torch.equal(svd_bits(o), svd_bits(outs[0]))
+                   for o in outs)
+        plan = S.svd_plan(b, m, n)
+        u, s_, v = outs[forms.index(plan)]
+        alone = all(torch.equal(
+            svd_bits(S.svd_fused(sa[i:i + 1].contiguous(), SWEEPS)),
+            svd_bits((u[i:i + 1], s_[i:i + 1], v[i:i + 1])))
+            for i in range(4))
+        stage = torch.equal(
+            svd_bits(pp.unpack_factors(pp.svd_factor_fused(sa))),
+            svd_bits((u, s_, v)))
+        rows = [0] + list(range(4, b))
+        ok, err = close(spectrum_recon(u[rows], s_[rows], v[rows]),
+                        spectrum_recon(*S.svd_plain(sa[rows], SWEEPS)),
+                        SVD_RTOL)
+        max_err["svd"] = max(max_err["svd"], err)
+        guard = (torch.equal(s_[1], torch.zeros_like(s_[1]))
+                 and all(bool(torch.isfinite(t[2]).all())
+                         for t in (u, s_, v)))
+        print(f"  svd {m}x{n} B={b}: plan {tuple(plan)}; {len(forms)} "
+              f"forms {[(p.group, p.cache) for p in forms]} bit for bit: "
+              f"{same}; "
+              f"alone == in the batch: {alone}; svd_factor == svd: "
+              f"{stage}; |kernel-plain| {err:.3e} (rtol {SVD_RTOL:.3g}); "
+              f"guards: {guard}", flush=True)
+        if not (same and alone and stage and ok and guard):
+            failures.append(f"svd {m}x{n} B={b}: forms {same}, alone "
+                            f"{alone}, stage {stage}, plain {ok}, guards "
+                            f"{guard}")
+        del sa, outs
 
     # ---- the primitives: K15-K17 and K19 ----
     print("primitive kernels (K15-K17, K19):", flush=True)
@@ -2638,7 +2714,9 @@ def main():
                          else list(cluster_plan(name, lanes, shapes))
                          if name in QR_CLUSTER_KERNELS
                          else list(tiled_plan(name, lanes, shapes))
-                         if name in CHOL_TILED_KERNELS else None)})
+                         if name in CHOL_TILED_KERNELS
+                         else list(S.svd_plan(lanes, *shapes[0]))
+                         if name == "svd" else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
@@ -2656,6 +2734,8 @@ def main():
                      f"  plan (clusters, threads, smem, tile) "
                      f"{sweep[-1]['plan']}"
                      if name in CHOL_TILED_KERNELS else
+                     f"  plan (group, threads, held) {sweep[-1]['plan']}"
+                     if name == "svd" else
                      f"  plan (threads, bs, "
                      f"{'tile, ' if name == 'qr_solve' else ''}smem) "
                      f"{sweep[-1]['plan']}" if sweep[-1]["plan"] else ""),
@@ -2678,7 +2758,8 @@ def main():
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "library_syncs": head["library_syncs"], "sweep": sweep})
+            "library_syncs": head["library_syncs"], "plan": head["plan"],
+            "sweep": sweep})
     for r in rows:
         if not all(math.isfinite(r[key]) for key in
                    ("ms", "plain_ms", "bound_ms", "max_abs_err")):

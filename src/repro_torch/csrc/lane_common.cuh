@@ -5,8 +5,9 @@
 // dynamic shared memory in float32.  Threads stride over the elements of
 // each ordered step and __syncthreads() separates the steps, which is the
 // ordered dependence chain the TPU kernels express as a fori_loop carry.
-// The FFT (K7, rows per CTA) and the Jacobi SVD (K8, a warp per lane) shape
-// their blocks themselves and take only warp_sum and allow_smem from here.
+// The FFT (K7, rows per CTA) and the Jacobi SVD (K8, a CTA per lane of its
+// plan's thread groups) shape their blocks themselves and take only
+// allow_smem from here.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,14 +1,15 @@
-// Phase stamps of the large-n Householder solves (K11, K13) and of the
-// tiled Cholesky solves (K12, K14).
+// Phase stamps of the large-n Householder solves (K11, K13), of the
+// tiled Cholesky solves (K12, K14) and of the Jacobi SVD (K8).
 //
 // An instance compiled with kOn = true reads clock64() on thread 0 of the
 // lane's first CTA at each phase edge, each edge right after a barrier
 // that ends the phase, and adds the cycles since the previous edge to that
 // phase's sum.  So the phases tile the lane's time from its first stamp to
 // its last: the sums add up to end - start exactly.  Only the phase-timing
-// entry points (``*_phases_f32``), which scripts/qr_phases.py and
-// scripts/chol_tiled_phases.py call, launch such an instance; the served
-// instances compile kOn = false, where every call below is empty.
+// entry points (``*_phases_f32``), which scripts/qr_phases.py,
+// scripts/chol_tiled_phases.py and scripts/svd_phases.py call, launch such
+// an instance; the served instances compile kOn = false, where every call
+// below is empty.
 #pragma once
 
 namespace repro_torch {
@@ -34,6 +35,15 @@ constexpr int kQrStampWords = 2 + kQrPhases;
 enum TiledPhase { kTpLoad, kTpGram, kTpFilter, kTpDiag, kTpUpdate, kTpWalk,
                   kTpRows, kTpTrail, kTpSums, kTpBacksub, kTiledPhases };
 constexpr int kTiledStampWords = 2 + kTiledPhases;
+
+// The one-sided Jacobi SVD (svd.cu): A copied in and V set to I; then per
+// round of disjoint pairs the three sums of each pair (its columns' loads,
+// the partial products and their reduction), the rotation's parameters,
+// the rotation of A's and V's two columns, and the barrier that closes
+// the round; last the epilogue (the norms, U's scaling and the stores).
+enum SvdPhase { kSvLoad, kSvSums, kSvParams, kSvRotate, kSvBarrier,
+                kSvEpilogue, kSvdPhases };
+constexpr int kSvdStampWords = 2 + kSvdPhases;
 
 template <bool kOn, int kPhases = kQrPhases>
 struct PhaseClock {

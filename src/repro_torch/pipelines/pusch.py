@@ -46,7 +46,8 @@ import torch
 from repro_torch.kernels.common import (CudaKernel, check_f32,
                                         resolve_device)
 from repro_torch.kernels.fft import fft_plain, launch_fft
-from repro_torch.kernels.svd import check_svd_shape, launch_svd, svd_plain
+from repro_torch.kernels.svd import (SvdPlan, check_svd_shape, launch_svd,
+                                     plan_of, svd_plain)
 from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
                                                   cholesky_chain_plain)
 from repro_torch.pipelines.mmse import mmse_equalize_plain
@@ -217,13 +218,16 @@ def pusch_fft_fused(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def svd_factor_fused(a: torch.Tensor, *,
-                     sweeps: int = DAG_SWEEPS) -> torch.Tensor:
+def svd_factor_fused(a: torch.Tensor, *, sweeps: int = DAG_SWEEPS,
+                     plan: SvdPlan | None = None) -> torch.Tensor:
     """SVD stage: (B, M, N) -> packed factor buffer (B, M+N+1, N) = rows
     [U; V; s]; float32, contiguous.  K8 writes the packed rows directly
-    (CUDA); the plain version on a CPU tensor."""
+    (CUDA; on ``plan``, default ``svd_plan``, every plan the same bits,
+    and the same bits as ``svd_fused``); the plain version on a CPU
+    tensor."""
     dev = check_f32("svd_factor", a)
     check_svd_shape("svd_factor", a)
+    plan = plan_of(a, plan)
     if dev.type == "cpu":
         return svd_factor_plain(a, sweeps=sweeps)
     bsz, m, n = a.shape
@@ -231,7 +235,7 @@ def svd_factor_fused(a: torch.Tensor, *,
     base = f.data_ptr()
     lane = (m + n + 1) * n
     launch_svd(a, base, base + 4 * (m + n) * n, base + 4 * m * n, sweeps,
-               (lane, lane, lane))
+               (lane, lane, lane), plan)
     return f
 
 

@@ -17,7 +17,9 @@ case and at zamba2-2.7b's and xlstm-125m's prefill shapes, and the
 hybrid and xLSTM smoke prefills with their exact K21 and K20 launch
 counts; K7 equal to its plain version bit for bit at every size from 2
 to 16384 points (the warp route up to 1024, the wide route past it), at
-the PUSCH DAG's rows in the stacked layout and on non-finite inputs.
+the PUSCH DAG's rows in the stacked layout and on non-finite inputs; K8
+under every plan bit for bit (zero, rank-2 and NaN lanes; a lane alone
+and in a batch; svd_factor and svd) and its phase stamps.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
@@ -310,6 +312,101 @@ def test_svd_kernel_matches_plain_by_spectrum_and_reconstruction(hopper,
         for g, w in zip(got, want):
             assert_close(g.cpu().numpy(), w.cpu().numpy(), rtol=spec.rtol,
                          name=f"{name} n={n}")
+
+
+# K8 on its plans: (n, lanes) at which every form of svd_forms (each group
+# size) must give the same bits: the svd_solve DAG's served shapes, 64
+# lanes of the slot mixes' largest n and an odd n; m = n + 4
+SVD_FORM_CASES = [(24, 32), (8, 4), (32, 64), (13, 8)]
+
+
+def _svd_lanes(dev, n, b, seed):
+    """b >= 4 lanes at (n + 4) x n: lane 1 zero, lane 2 rank 2, lane 3 a
+    NaN; the others Gaussian (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((b, n + 4, n)).astype(np.float32)
+    a[1] = 0.0
+    a[2] = rng.standard_normal((n + 4, 2)) @ rng.standard_normal((2, n))
+    a[3, n // 3, n // 5] = np.nan
+    return torch.from_numpy(a).to(dev)
+
+
+@pytest.mark.parametrize("n,b", SVD_FORM_CASES)
+def test_svd_forms_equal_bit_for_bit(hopper, n, b):
+    """K8 under every plan of svd_forms gives one U, S and V bit for bit,
+    each one launch; a lane alone gives its bits in the batch; the DAG
+    stage (svd_factor) gives svd's bits; the clean lanes match the plain
+    version by spectrum and reconstruction at the spec's rtol, the zero
+    lane gives s = 0 exactly, the rank-2 lane stays finite."""
+    a = _svd_lanes(hopper, n, b, seed=n + b)
+    forms = tsvd.svd_forms(n + 4, n)
+    assert {p.group for p in forms} == set(tsvd.SVD_GROUPS)
+    assert {p.cache for p in forms} == {0, -(-(n + 4) // 32)}
+    outs = []
+    for plan in forms:
+        before = _launches("svd")
+        outs.append(tsvd.svd_fused(a, 14, plan=plan))
+        torch.cuda.synchronize()
+        assert _launches("svd") == before + 1
+    for plan, out in zip(forms, outs):
+        for x, y in zip(out, outs[0]):
+            assert torch.equal(_bits(x), _bits(y)), str(plan)
+    u, s, v = outs[0]
+    alone = tsvd.svd_fused(a[2:3].contiguous(), 14)
+    for x, y in zip(alone, (u[2:3], s[2:3], v[2:3])):
+        assert torch.equal(_bits(x), _bits(y))
+    f = tp.svd_factor_fused(a, sweeps=14)
+    for x, y in zip(tp.unpack_factors(f), (u, s, v)):
+        assert torch.equal(_bits(x), _bits(y))
+    clean = [i for i in range(b) if i not in (1, 2, 3)]
+    rtol = TK.get("svd").rtol
+    got = tsvd.spectrum_recon(u[clean], s[clean], v[clean])
+    want = tsvd.spectrum_recon(*tsvd.svd_plain(a[clean], sweeps=14))
+    for g, w in zip(got, want):
+        assert_close(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol,
+                     name=f"svd n={n} B={b}")
+    assert torch.equal(s[1], torch.zeros_like(s[1]))
+    assert all(bool(torch.isfinite(t[2]).all()) for t in (u, s, v))
+
+
+def test_svd_plan_refused_off_its_forms(hopper):
+    """A plan that is not one of the shape's forms raises before any
+    launch; the C entry refuses threads off svd_threads and held rows off
+    m's row blocks."""
+    a = _svd_lanes(hopper, 8, 4, seed=1)
+    before = _launches("svd")
+    with pytest.raises(ValueError, match="not a form"):
+        tsvd.svd_fused(a, 14, plan=tsvd.SvdPlan(64, 128, 0))
+    with pytest.raises(ValueError, match="not a form"):
+        tsvd.svd_fused(a, 14, plan=tsvd.SvdPlan(8, 64, 0))
+    assert _launches("svd") == before
+    u, s, v = (torch.empty_like(x) for x in tsvd.svd_fused(a, 14))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tsvd._KERNEL.launch(hopper, (12, 8), a.data_ptr(), u.data_ptr(),
+                            s.data_ptr(), v.data_ptr(), 4, 12, 8, 14, 96, 8,
+                            64, 8, 64, 0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tsvd._KERNEL.launch(hopper, (12, 8), a.data_ptr(), u.data_ptr(),
+                            s.data_ptr(), v.data_ptr(), 4, 12, 8, 14, 96, 8,
+                            64, 8, 32, 2)
+
+
+@pytest.mark.parametrize("n,b", [(24, 32), (32, 64)])
+def test_svd_phase_stamps_are_ordered_and_cover_the_kernel(hopper, n, b):
+    """The phase-stamped instance gives the served bits on every form;
+    each lane's stamps are ordered and its phases add up to its time."""
+    a = _svd_lanes(hopper, n, b, seed=5)
+    for plan in tsvd.svd_forms(n + 4, n):
+        before = _launches("svd")
+        factors, stamps = tsvd.svd_phases(a, 14, plan=plan)
+        torch.cuda.synchronize()
+        assert _launches("svd") == before
+        for x, y in zip(factors, tsvd.svd_fused(a, 14, plan=plan)):
+            assert torch.equal(_bits(x), _bits(y))
+        st = stamps.cpu()
+        assert st.shape == (b, 2 + len(tsvd.SVD_PHASES))
+        assert bool((st[:, 1] > st[:, 0]).all() and (st[:, 2:] >= 0).all())
+        assert torch.equal(st[:, 2:].sum(dim=1), st[:, 1] - st[:, 0])
 
 
 def test_dag_guard_cases_on_card(hopper):
