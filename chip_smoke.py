@@ -19,7 +19,8 @@ Phases, each fatal on failure:
                instances' registers and the cluster plan (CTAs a lane,
                threads, shared memory, panel in shared memory) of every
                shape and batch the script launches them at, each beside
-               cudaOccupancyMaxActiveClusters;
+               cudaOccupancyMaxActiveClusters; the same of K10, K12 and
+               K14 (CTAs a lane, threads, shared memory, product tile);
   3. kernels — K1-K21 held against their plain PyTorch versions
                and the oracles at the registry sizes, at a slot's real width
                (B = 3276 lanes: one 100 MHz carrier at 30 kHz SCS, 273
@@ -56,7 +57,14 @@ Phases, each fatal on failure:
                to the shared form bit for bit, the lanes beside the NaN
                equal to their clean batch's; K10/K11 at panel
                widths that are not multiples of 32 (bs = 16 at n = 128,
-               48 at n = 192).  K11 and K13 on thread-block clusters: at
+               48 at n = 192).  K10 on the tiled core's clusters: at n =
+               128 and 256 (bs = 64), 128 (bs = 32, 16) and 192 (bs =
+               48) every form of its plan (each cluster size and product
+               tile) gives C = 1's answer bit for bit, within rtol of the
+               plain version, on a lane with a deficient pivot and a lane
+               with NaN above the diagonal (its clean lane's answer), and
+               one right-hand side solved alone gives its bits inside
+               the pair.  K11 and K13 on thread-block clusters: at
                516 x 512, 1028 x 1024 and 2052 x 512 (K13, bs = 128) and
                132 x 128, 260 x 256 and 160 x 128 (K11, bs = 16, 32, 64)
                every form the cluster plan may take (each cluster size,
@@ -167,7 +175,7 @@ Phases, each fatal on failure:
                shared form at n = 128, and the tiled kernels at n = 512
                (B = 3276) and 1024 (B = 264), the blocked kernels at n =
                128 and 256 and the tiled ones at n = 512 also at the 32
-               lanes the slot mixes serve (K11's and K13's rows with their
+               lanes the slot mixes serve (K10-K14's rows with their
                cluster plans); K15-K17 at B = 3276 (K16
                forward and backward) and K19 at 61,440 outputs.  The
                median of 30 calls, or of 5 where one call passes 250 ms
@@ -367,6 +375,15 @@ CHOL_TILED_BITS = (("mmse_equalize_tiled", 516, 512, 128, 4),
                    ("cholesky_solve_tiled", 1024, 1024, 128, 4),
                    ("cholesky_solve_tiled", 512, 512, 64, 4),
                    ("cholesky_solve_tiled", 512, 512, 32, 4))
+# K10 on the tiled core's clusters: (n, bs, lanes, k) at which every plan
+# of chol_tiled_forms must give C = 1's bits, on a deficient lane and on a
+# lane with NaN above the diagonal: the mid-range sizes at the default
+# panel width, the panel widths 32, 16 and 48, and lanes of one panel (n =
+# bs, no rows below it), the second past a CTA's room for right-hand
+# sides (two column groups)
+BLOCKED_BITS = ((128, 64, 4, 2), (256, 64, 4, 2), (128, 32, 4, 2),
+                (128, 16, 4, 2), (192, 48, 4, 2), (128, 128, 4, 2),
+                (224, 224, 4, 33))
 # K8 and K9 at the shapes the served DAGs launch them: the svd_solve DAG
 # at n = 8 on the mux's 4 lanes (serve_solvers --pusch) and at n = 24 on
 # 32 lanes (--sizes 24 --lanes 32), (n, lanes), m = n + 4
@@ -1087,10 +1104,13 @@ def main():
             2 * n if name == "mmse_equalize_split" else n, shapes[-1][-1])
 
     def tiled_plan(name, lanes, shapes):
-        """The cluster plan of a K12 / K14 launch of ``lanes`` lanes at
-        per-lane ``shapes`` (A, B or H, y) and the default panel width."""
+        """The cluster plan of a K10 / K12 / K14 launch of ``lanes`` lanes
+        at per-lane ``shapes`` (A, B or H, y) and the default panel
+        width."""
         (m, n), (_, k) = shapes
-        return pp.chol_tiled_plan(lanes, n, k, KCS.tiled_block_size(n), name,
+        bs = (KCS.block_size(n) if name == "cholesky_solve_blocked"
+              else KCS.tiled_block_size(n))
+        return pp.chol_tiled_plan(lanes, n, k, bs, name,
                                   m if name == "mmse_equalize_tiled" else None)
 
     def cluster_plan(name, lanes, shapes):
@@ -1183,9 +1203,9 @@ def main():
     # K12 / K14: each instance's registers, and the cluster plan of each
     # shape and batch the script launches beside the clusters the card
     # holds at once at that plan (cudaOccupancyMaxActiveClusters)
-    print("K12 / K14 cluster plans (tiled_chol.cuh, -Xptxas -v):",
+    print("K10 / K12 / K14 cluster plans (tiled_chol.cuh, -Xptxas -v):",
           flush=True)
-    for name in CHOL_TILED_KERNELS:
+    for name in CHOL_TILED_KERNELS + ("cholesky_solve_blocked",):
         ptxas = ptxas_lines(common.build_info["log"], f"{name}.cu")
         for i, line in enumerate(ptxas):
             if f"{name}_kernel" in line:
@@ -1206,6 +1226,19 @@ def main():
         print(f"    {name} {m} x {n} bs={bs} forms: " + ", ".join(
             f"{tuple(p)} {KCS.chol_tiled_occupancy(name, p)} at once"
             for p in pp.chol_tiled_forms(n, 2, bs, name, mm)), flush=True)
+    k10 = "cholesky_solve_blocked"
+    for n, bs, lanes in sorted(
+            {(n, KCS.block_size(n), b) for n, _, _, b in MID_TIMES[k10]}
+            | {(n, bs, LANES) for n, bs in ODD_WIDTHS}):
+        plan = pp.chol_tiled_plan(lanes, n, 2, bs, k10)
+        at_once = KCS.chol_tiled_occupancy(k10, plan)
+        print(f"    {k10} n={n} bs={bs} B={lanes}: {tuple(plan)}, "
+              f"{at_once} clusters at once, {-(-lanes // at_once)} waves",
+              flush=True)
+    for n, bs, *_ in BLOCKED_BITS:
+        print(f"    {k10} n={n} bs={bs} forms: " + ", ".join(
+            f"{tuple(p)} {KCS.chol_tiled_occupancy(k10, p)} at once"
+            for p in pp.chol_tiled_forms(n, 2, bs, k10)), flush=True)
 
     # K8: each instance's registers (svd_kernel<g, rows held, stamps>),
     # and the plan of each shape and batch the script launches it at
@@ -1867,6 +1900,52 @@ def main():
         if not (same and ok and guard):
             failures.append(f"{name} {m}x{n} bs={bs}: forms {same}, plain "
                             f"{ok}, guards {guard}")
+        del ta, tb, outs, one
+
+    # K10 under every plan of chol_tiled_forms (each cluster size and
+    # product tile): C = 1's answer bit for bit; within the spec's rtol of
+    # the plain version on the clean lanes; the poisoned upper triangle its
+    # clean lane's answer, the deficient lane finite; the first right-hand
+    # side solved alone its bits inside the pair (inputs from a generator
+    # of their own, so every other check keeps its draw)
+    bgen = torch.Generator(device=dev)
+    bgen.manual_seed(7)
+    k10 = "cholesky_solve_blocked"
+    for n, bs, b, k in BLOCKED_BITS:
+        ta, tb = mid_case("cholesky_solve", b, n, g=bgen)
+        f_ = grand(n, n, g=bgen)
+        if k != 2:
+            tb = grand(b, n, k, g=bgen)
+        f_[:, 3 * n // 5] = f_[:, 3]
+        ta[1] = f_ @ f_.T
+        ta[2] = ta[0]
+        tb[2] = tb[0]
+        iu = torch.triu_indices(n, n, offset=1, device=dev)
+        ta[2, iu[0], iu[1]] = float("nan")
+        forms = pp.chol_tiled_forms(n, pp.blocked_rhs_groups(n, k, bs)[0],
+                                    bs, k10)
+        outs = [fused[k10](ta, tb, bs=bs, plan=plan) for plan in forms]
+        one = next(o for p, o in zip(forms, outs) if p.clusters == 1)
+        same = all(torch.equal(x.view(torch.int32), one.view(torch.int32))
+                   for x in outs)
+        rows = [0, 3]
+        ok, err = close(one[rows], plain[k10](ta[rows], tb[rows], bs=bs),
+                        RTOLS.get(k10, RTOL))
+        max_err[k10] = max(max_err[k10], err)
+        guard = (torch.equal(one[2].view(torch.int32),
+                             one[0].view(torch.int32))
+                 and bool(torch.isfinite(one[1]).all()))
+        alone = torch.equal(
+            fused[k10](ta, tb[:, :, :1].contiguous(), bs=bs)
+            .view(torch.int32), one[:, :, :1].contiguous().view(torch.int32))
+        print(f"  {k10:<22} n={n} bs={bs} k={k}: {len(forms)} forms "
+              f"{[(p.clusters, p.tile) for p in forms]} bit for bit: "
+              f"{same}; |kernel-plain| {err:.3e} (rtol "
+              f"{RTOLS.get(k10, RTOL):g}); guards: {guard}; one rhs alone: "
+              f"{alone}", flush=True)
+        if not (same and ok and guard and alone):
+            failures.append(f"{k10} n={n} bs={bs} k={k}: forms {same}, "
+                            f"plain {ok}, guards {guard}, alone {alone}")
         del ta, tb, outs, one
 
     # K8 under every plan of svd_forms: one set of U, S and V bits at every
@@ -2715,6 +2794,7 @@ def main():
                          if name in QR_CLUSTER_KERNELS
                          else list(tiled_plan(name, lanes, shapes))
                          if name in CHOL_TILED_KERNELS
+                         + ("cholesky_solve_blocked",)
                          else list(S.svd_plan(lanes, *shapes[0]))
                          if name == "svd" else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
@@ -2733,7 +2813,8 @@ def main():
                      if name in QR_CLUSTER_KERNELS else
                      f"  plan (clusters, threads, smem, tile) "
                      f"{sweep[-1]['plan']}"
-                     if name in CHOL_TILED_KERNELS else
+                     if name in CHOL_TILED_KERNELS
+                     + ("cholesky_solve_blocked",) else
                      f"  plan (group, threads, held) {sweep[-1]['plan']}"
                      if name == "svd" else
                      f"  plan (threads, bs, "

@@ -105,7 +105,9 @@ def cold_timer(device, reps: int):
 
 def device_kernels(fn) -> list:
     """What the card runs for one fn() (after one warm call): each
-    kernel's name (cut to 60 characters) and device us, torch.profiler."""
+    kernel's name (its return type and anonymous namespaces dropped, so a
+    template kernel's name keeps its own, cut to 60 characters) and
+    device us, torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -114,5 +116,7 @@ def device_kernels(fn) -> list:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [(e.name[:60], e.time_range.elapsed_us())
+    return [(e.name.removeprefix("void ")
+             .replace("(anonymous namespace)::", "")[:60],
+             e.time_range.elapsed_us())
             for e in prof.events() if e.device_type == DeviceType.CUDA]

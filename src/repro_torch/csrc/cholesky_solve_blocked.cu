@@ -1,4 +1,4 @@
-// K10: right-looking blocked fused SPD solve, one CTA per lane.
+// K10: right-looking blocked fused SPD solve, a lane on a cluster.
 //
 // Replaces: src/repro/pipelines/cholesky_solve.py, cholesky_solve_blocked
 // (_cholesky_solve_blocked_kernel, _panel_factor_forward_step), the TPU
@@ -8,164 +8,84 @@
 // applies the panel to the trailing submatrix as one rank-bs SYRK; the back
 // substitution on L^T follows the last panel.
 //
-// What bounds it on an H100: per lane n^3/3 + 2 n^2 m FLOPs and
-// n (n + 1) / 2 + 2 n m floats in and out, a few microseconds of either at
-// a carrier's width; what holds it back is the order: 2 bs barrier-
-// separated steps per panel, n / bs SYRK phases and n back-substitution
-// steps.  A lane at n = 256 is 256 KB, more than a CTA's shared memory, so
-// the ordered grid axis becomes a loop inside one CTA per lane and:
+// What bounds it on an H100: per lane n^3/3 + 2 n^2 k FLOPs and
+// n (n + 1) / 2 + 2 n k floats in and out, a few microseconds of either at
+// a carrier's width; what holds it back is the order: the panel's columns
+// one after another, n / bs trailing updates and an n-step back
+// substitution.  A lane at n = 256 is 256 KB, more than a CTA's shared
+// memory, so the ordered grid axis becomes a loop inside the lane, which
+// runs on the tiled Cholesky core (tiled_chol.cuh) on a thread-block
+// cluster of C CTAs:
 //   * the working matrix (the reference's a_scr) lives in a per-lane slice
-//     of a device work buffer, lower triangle only (the upper half of A is
-//     never loaded, so garbage there cannot leak);
-//   * the (n x bs) panel is staged in shared memory (pitch bs + 1, so a
-//     warp's rows fall in distinct banks) with y, and every panel step
-//     touches only shared memory;
-//   * the SYRK is computed in the kernel with f32 FMAs from the panel in
-//     shared memory onto the trailing lower triangle in device memory (the
-//     chain never reads the upper half), each output summed in panel-column
-//     order, in 4 x 4 register tiles (8 shared loads per 16 FMAs).
+//     of a device work buffer, lower triangle only; the first panel reads
+//     A's lower triangle in place (nothing right of A's diagonal is read,
+//     so garbage there cannot leak), and the right-hand sides are solved
+//     in place in the output;
+//   * tiled_factor: the panel's diagonal block factored in shared memory
+//     by every rank, the rows of L21 and the trailing update's tiles dealt
+//     to the ranks; each element of L and y takes the panel step's rank-1
+//     updates in column order and the trailing update's sum over the
+//     panel's columns, as the reference's blocked kernel does;
+//   * tiled_backsub_chain: the back substitution in the order of the
+//     reference's n-step chain (back_substitution_step), a slab's diagonal
+//     block solved by every rank, the rows above taking its x dealt to the
+//     ranks, one cluster barrier a slab.
+// The plan (C, the product tile, shared memory) is
+// pipelines/cholesky_solve.py's chol_tiled_plan(..., kernel
+// "cholesky_solve_blocked"); every plan gives the same bits.  The threshold max(eps max diag A,
+// 1e-30) comes from the raw diagonal.
 #include <cstddef>
+#include <cstdint>
 
-#include "lane_common.cuh"
-#include "tile_loops.cuh"
+#include "tiled_chol.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kBlockedThreads = 256;
-
-__global__ void __launch_bounds__(kBlockedThreads)
+template <bool kStamp, int kT>
+__global__ void __launch_bounds__(kTcThreads, 2)
 cholesky_solve_blocked_kernel(const float* __restrict__ A,
-                              const float* __restrict__ B,
-                              float* __restrict__ X, float* __restrict__ work,
-                              int n, int m, int bs, float eps) {
-  extern __shared__ float smem[];
+                              const float* __restrict__ B, float* X,
+                              float* work, unsigned long long* stamps, int n,
+                              int k, int bs, int c, float eps) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  TiledLane<kStamp> ln(c);
+  const TiledLayout L = tiled_layout(k, bs, kT, n > bs);
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int pc = bs + 1;
-  const size_t lane = blockIdx.x;
-  float* c = smem;              // n * pc: the panel (rows o.. in use)
-  float* y = c + n * pc;        // n * m
-  float* col = y + n * m;       // n: the finished column of L
-  float* yk = col + n;          // m: the finished solution row
-  float* thresh_s = yk + m;     // 1
-  float* a = work + lane * n * n;
-  const float* al = A + lane * n * n;
-  const float* bl = B + lane * n * m;
-  for (int e = tid; e < n * n; e += nt)
-    if (e % n <= e / n) a[e] = al[e];   // lower triangle only
-  for (int e = tid; e < n * m; e += nt) y[e] = bl[e];
-  if (tid == 0) *thresh_s = diag_threshold(al, n, n, eps, kPivotFloor);
-  __syncthreads();
-  const float thresh = *thresh_s;
-
-  for (int o = 0; o < n; o += bs) {
-    const int prows = n - o;
-    // stage the panel: columns o..o+bs, rows o.., lower part (zero above)
-    for (int e = tid; e < prows * bs; e += nt) {
-      const int r = o + e / bs;
-      const int jj = e % bs;
-      c[r * pc + jj] = r >= o + jj ? a[r * n + o + jj] : 0.0f;
-    }
-    __syncthreads();
-    for (int j = 0; j < bs; ++j) {
-      // point + vector region: guarded rsqrt pivot, scaled column,
-      // solution row g
-      const int g = o + j;
-      const float piv = c[g * pc + j];
-      const bool ok = piv > thresh;
-      const float inv = ok ? rsqrtf(fmaxf(piv, thresh)) : 0.0f;
-      for (int r = g + tid; r < n; r += nt)
-        col[r] = (r == g) ? (ok ? piv * inv : 1.0f) : c[r * pc + j] * inv;
-      for (int q = tid; q < m; q += nt) yk[q] = y[g * m + q] * inv;
-      __syncthreads();
-      // rank-1 update of the remaining panel columns (their lower part),
-      // column j of L stored, and the forward-substitution AXPY
-      for (int r = g + tid; r < n; r += nt) {
-        const float lr = col[r];
-        c[r * pc + j] = lr;
-        if (r == g) {
-          for (int q = 0; q < m; ++q) y[g * m + q] = yk[q];
-          continue;
-        }
-        const int jend = min(bs, r - o + 1);
-        for (int jj = j + 1; jj < jend; ++jj)
-          c[r * pc + jj] -= lr * col[o + jj];
-        for (int q = 0; q < m; ++q) y[r * m + q] -= lr * yk[q];
-      }
-      __syncthreads();
-    }
-    // the panel's columns of L back to the work buffer, and the rank-bs
-    // SYRK onto the trailing lower triangle (rows, columns >= o + bs)
-    for (int e = tid; e < prows * bs; e += nt) {
-      const int r = o + e / bs;
-      const int jj = e % bs;
-      if (r >= o + jj) a[r * n + o + jj] = c[r * pc + jj];
-    }
-    // SYRK tiles: a thread sums a 4 x 4 block of outputs, each over the
-    // panel columns in order; a warp takes 4 x 8 blocks (16 rows x 32
-    // columns), so its row and column loads fall in distinct banks
-    // (pitch bs + 1) or are broadcasts.  The block and warp-tile counts
-    // round up, so the tiles cover a trailing block of any size: rows
-    // past n are loaded from row n - 1 and never stored.
-    const int t0 = o + bs;
-    const int nb = ceil_div(n - t0, 4);
-    const int si = ceil_div(nb, 4);
-    const int sj = ceil_div(nb, 8);
-    const int warp = tid >> 5;
-    const int lid = tid & 31;
-    for (int st = warp; st < si * sj; st += nt >> 5) {
-      const int bi = (st / sj) * 4 + (lid >> 3);
-      const int bj = (st % sj) * 8 + (lid & 7);
-      if (bi >= nb || bj > bi) continue;
-      const int i0 = t0 + 4 * bi;
-      const int j0 = t0 + 4 * bj;
-      float s[4][4] = {};
-      for (int p = 0; p < bs; ++p) {
-        float x[4], w[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          x[r] = c[min(i0 + r, n - 1) * pc + p];
-          w[r] = c[min(j0 + r, n - 1) * pc + p];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) s[r][q] += x[r] * w[q];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (i0 + r < n && j0 + q <= i0 + r)
-            a[(i0 + r) * n + j0 + q] -= s[r][q];
-    }
-    __syncthreads();
-  }
-
-  // back substitution on U = L^T: x[k] = y[k] / l[k][k];
-  // y[j < k] -= l[k][j] * x[k]  (row k of L, left of the diagonal)
-  for (int k = n - 1; k >= 0; --k) {
-    const float lkk = a[k * n + k];
-    for (int q = tid; q < m; q += nt) yk[q] = y[k * m + q] / lkk;
-    __syncthreads();
-    for (int e = tid; e < (k + 1) * m; e += nt) {
-      const int i = e / m;
-      const int q = e % m;
-      if (i == k)
-        y[e] = yk[q];
-      else
-        y[e] -= a[k * n + i] * yk[q];
-    }
-    __syncthreads();
-  }
-  float* xl = X + lane * n * m;
-  for (int e = tid; e < n * m; e += nt) xl[e] = y[e];
+  const size_t nn = static_cast<size_t>(n) * n;
+  const float* al = A + ln.lane * nn;
+  float* a = work + ln.lane * nn;
+  float* y = X + ln.lane * n * k;
+  const bool vec4 = n % 4 == 0 && bs % 4 == 0;
+  const bool a16 = vec4 && (reinterpret_cast<uintptr_t>(A) & 15) == 0;
+  for (int e = ln.cl.rank * kTcThreads + tid; e < n * k; e += kTcThreads * c)
+    y[e] = B[ln.lane * n * k + e];
+  float dmax = -INFINITY;       // every rank, from A's raw diagonal
+  for (int i = tid; i < n; i += kTcThreads)
+    dmax = nan_max(dmax, al[i * static_cast<size_t>(n) + i]);
+  dmax = block_max(dmax, smem + L.red);
+  const float thresh = isnan(dmax) ? NAN : fmaxf(eps * dmax, kPivotFloor);
+  ln.cl.sync();
+  ln.clk.mark(kTpLoad);
+  tiled_factor<kT>(a, al, y, n, k, bs, thresh, vec4, a16, ln.cl, smem,
+                   ln.clk, n > bs);
+  tiled_backsub_chain<kT>(a, y, n, k, bs, vec4, ln.cl, smem, ln.clk);
+  if (kStamp) ln.clk.write(stamps + ln.lane * kTiledStampWords);
 }
 
-size_t smem_bytes(int n, int m, int bs) {
-  return sizeof(float) *
-         (static_cast<size_t>(n) * (bs + 1) + n * m + n + m + 1);
+template <bool kStamp>
+int launch(const void* a, const void* b, void* x, void* work,
+           unsigned long long* stamps, int batch, int n, int k, int bs,
+           float eps, int c, int tile, int smem, void* stream) {
+  if (!tiled_plan_ok(n, k, bs, c, tile, smem)) return cudaErrorInvalidValue;
+  const auto kernel = tile == 128
+                          ? cholesky_solve_blocked_kernel<kStamp, 128>
+                          : cholesky_solve_blocked_kernel<kStamp, 64>;
+  return cluster_launch(kernel, batch, c, kTcThreads, smem, stream,
+                        static_cast<const float*>(a),
+                        static_cast<const float*>(b), static_cast<float*>(x),
+                        static_cast<float*>(work), stamps, n, k, bs, c, eps);
 }
 
 }  // namespace
@@ -173,24 +93,35 @@ size_t smem_bytes(int n, int m, int bs) {
 
 extern "C" {
 
-size_t cholesky_solve_blocked_smem(int n, int m, int bs) {
-  return repro_torch::smem_bytes(n, m, bs);
+// a (batch, n, n), b (batch, n, k) -> x (batch, n, k), all float32;
+// work: batch * n * n floats; n % bs == 0; the plan (c, tile, smem) must be
+// chol_tiled_plan's formula.
+int cholesky_solve_blocked_f32(const void* a, const void* b, void* x,
+                               void* work, int batch, int n, int k, int bs,
+                               float eps, int c, int tile, int smem,
+                               void* stream) {
+  return repro_torch::launch<false>(a, b, x, work, nullptr, batch, n, k, bs,
+                                    eps, c, tile, smem, stream);
 }
 
-// a (batch, n, n), b (batch, n, m) -> x (batch, n, m), all float32;
-// work: batch * n * n floats; n % bs == 0.
-int cholesky_solve_blocked_f32(const void* a, const void* b, void* x,
-                               void* work, int batch, int n, int m, int bs,
-                               float eps, void* stream) {
+// The same solve with the phase stamps (phase_clock.cuh): stamps holds
+// batch * kTiledStampWords words.  Only scripts/chol_tiled_phases.py
+// launches it.
+int cholesky_solve_blocked_phases_f32(const void* a, const void* b, void* x,
+                                      void* work, void* stamps, int batch,
+                                      int n, int k, int bs, float eps, int c,
+                                      int tile, int smem, void* stream) {
+  return repro_torch::launch<true>(
+      a, b, x, work, static_cast<unsigned long long*>(stamps), batch, n, k,
+      bs, eps, c, tile, smem, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the served instance of a plan.
+int cholesky_solve_blocked_clusters(int c, int tile, int smem) {
   using namespace repro_torch;
-  const size_t smem = smem_bytes(n, m, bs);
-  cudaError_t err = allow_smem(cholesky_solve_blocked_kernel, smem);
-  if (err != cudaSuccess) return err;
-  cholesky_solve_blocked_kernel<<<batch, kBlockedThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(x), static_cast<float*>(work), n, m, bs, eps);
-  return cudaGetLastError();
+  const auto kernel = tile == 128 ? cholesky_solve_blocked_kernel<false, 128>
+                                  : cholesky_solve_blocked_kernel<false, 64>;
+  return cluster_occupancy(kernel, c, kTcThreads, smem);
 }
 
 }  // extern "C"

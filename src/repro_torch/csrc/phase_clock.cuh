@@ -1,5 +1,6 @@
 // Phase stamps of the large-n Householder solves (K11, K13), of the
-// tiled Cholesky solves (K12, K14) and of the Jacobi SVD (K8).
+// Cholesky solves on the tiled core (K10, K12, K14) and of the Jacobi SVD
+// (K8).
 //
 // An instance compiled with kOn = true reads clock64() on thread 0 of the
 // lane's first CTA at each phase edge, each edge right after a barrier
@@ -31,9 +32,12 @@ constexpr int kQrStampWords = 2 + kQrPhases;
 // and its rank-4 updates, "update"), the rows of L21 (the column walk,
 // "walk", and the rest: their copy in, scale, stores and rows of y,
 // "rows") and the trailing update; per slab of the back substitution its
-// sums over the rows below and its diagonal block's solve.
+// sums over the rows below (K12, K14) and its diagonal block's solve; and
+// per slab of K10's chain back substitution the rows above taking the
+// slab's x ("chain").
 enum TiledPhase { kTpLoad, kTpGram, kTpFilter, kTpDiag, kTpUpdate, kTpWalk,
-                  kTpRows, kTpTrail, kTpSums, kTpBacksub, kTiledPhases };
+                  kTpRows, kTpTrail, kTpSums, kTpBacksub, kTpChain,
+                  kTiledPhases };
 constexpr int kTiledStampWords = 2 + kTiledPhases;
 
 // The one-sided Jacobi SVD (svd.cu): A copied in and V set to I; then per

@@ -1,6 +1,7 @@
-// The tiled Cholesky core of K12 and K14 on a thread-block cluster, shared
-// as the reference's tiled kernels share _tiled_factor_cell and
-// _tiled_backsub_cell (src/repro/pipelines/cholesky_solve.py).
+// The tiled Cholesky core of K10, K12 and K14 on a thread-block cluster,
+// shared as the reference's tiled kernels share _tiled_factor_cell and
+// _tiled_backsub_cell (src/repro/pipelines/cholesky_solve.py), and as its
+// blocked kernel (K10's) runs the same panel factor.
 //
 // One lane (an n x n SPD working matrix, lower triangle only, and n x k
 // right-hand sides) runs on a cluster of C = 1, 2, 4 or 8 CTAs of
@@ -37,8 +38,12 @@
 //     C), each element's sum over the panel's columns in order;
 //   * a cluster barrier after the rows of L21 and after the trailing
 //     update: two a panel.
-// The first panel of K12 reads A in place of a copy (tiled_factor's a_in).
-// Then the back substitution over the slabs in reverse, left-looking: the
+// The first panel of K10 and K12 reads A in place of a copy
+// (tiled_factor's a_in).  K10 then runs the back substitution in the order
+// of the reference's chain (tiled_backsub_chain: a slab's diagonal block
+// solved by every rank, then the rows above take its x one subtraction at
+// a time, dealt to the ranks).  K12 and K14 run the back substitution over
+// the slabs in reverse, left-looking: the
 // slab's rows of z take the already-solved rows below through the slab's
 // columns (each element one thread's serial sum over the rows in order,
 // the rows staged in shared memory a chunk at a time, the slab's rows
@@ -84,19 +89,23 @@ struct TiledLayout {            // float offsets into dynamic shared memory
 
 // pb, the diagonal block's pitch, is a multiple of 4 (four consecutive
 // columns of a row are one float4) and 4 more than bs rounded up, so
-// eight threads on eight consecutive rows hit distinct banks.
-__host__ __device__ inline TiledLayout tiled_layout(int k, int bs, int kt) {
+// eight threads on eight consecutive rows hit distinct banks.  below: the
+// lane has rows below its first panel (n > bs); a lane of one panel has
+// no rows of L21 and no trailing update, so no room for them, and its
+// block takes the pitch bs rounded up (up to bs = 239 fits).
+__host__ __device__ inline TiledLayout tiled_layout(int k, int bs, int kt,
+                                                    bool below = true) {
   TiledLayout l;
-  l.pb = align4(bs) + 4;
-  const int chunk = kRowChunk * l.pb;
-  const int wide = wide_smem_floats(kt);
+  l.pb = align4(bs) + (below ? 4 : 0);
+  const int chunk = below ? kRowChunk * l.pb : 0;
+  const int wide = below ? wide_smem_floats(kt) : 0;
   l.blk = 0;                    // bs * pb: the diagonal block, then L11
   l.inv = l.blk + bs * l.pb;    // bs: the pivots' guarded rsqrt
   l.yb = l.inv + align4(bs);    // bs * k: the block's rows of y in work
   l.ybf = align4(l.yb + bs * k);    // bs * k: and finished
   l.chunk = align4(l.ybf + bs * k); // rows below the block, or staging
   l.ych = l.chunk + (chunk > wide ? chunk : wide);
-  l.red = l.ych + kRowChunk * k;    // 32: reduction scratch
+  l.red = l.ych + (below ? kRowChunk * k : 0);  // 32: reduction scratch
   l.total = l.red + 32;
   return l;
 }
@@ -108,7 +117,7 @@ inline bool tiled_plan_ok(int n, int k, int bs, int c, int tile, int smem) {
   if (!(c == 1 || c == 2 || c == 4 || c == 8)) return false;
   if (!(tile == 64 || tile == 128)) return false;
   return smem == static_cast<int>(sizeof(float)) *
-                     tiled_layout(k, bs, tile).total;
+                     tiled_layout(k, bs, tile, n > bs).total;
 }
 
 // A lane's place on its cluster: its rank, the cluster size and the
@@ -495,13 +504,14 @@ __device__ __noinline__ void tiled_trail_tile(float* a, const float* src,
 // after a cluster barrier that made y whole; leaves after one.  vec4: n
 // and bs multiples of 4 (and y's base 16-byte aligned), so every row the
 // phases copy from a starts on 16 bytes; vec4_in the same of a_in.
+// below: n > bs (tiled_layout; K12 and K14 always have rows below).
 template <int kT, class Clock>
 __device__ inline void tiled_factor(float* a, const float* a_in, float* y,
                                     int n, int k, int bs, float thresh,
                                     bool vec4, bool vec4_in,
                                     const TcCluster& cl, float* smem,
-                                    Clock& clk) {
-  const TiledLayout L = tiled_layout(k, bs, kT);
+                                    Clock& clk, bool below = true) {
+  const TiledLayout L = tiled_layout(k, bs, kT, below);
   const int pb = L.pb;
   float* blk = smem + L.blk;
   float* inv = smem + L.inv;
@@ -594,14 +604,51 @@ __device__ inline void tiled_factor(float* a, const float* a_in, float* y,
   }
 }
 
-// The back substitution on U = L^T over the slabs in reverse: for the
-// slab at columns o..o+bs, z[o + j] = y[o + j] - sum over rows r >= o + bs
-// of L[r][o + j] x[r] (the slab's rows dealt to the ranks in contiguous
-// blocks; the rows r staged kRowChunk at a time, each element's partial
-// sum kept in shared memory between stages), then on rank 0 x[kk] =
-// z[kk] / l[kk][kk], z[i < kk] -= l[kk][i] x[kk] inside the (bs x bs)
-// diagonal block, kk descending, by sub-blocks of 32 rows.  y holds x on
-// return.  Entered after a cluster barrier; leaves after one.
+// The solve of a slab's (bs x bs) diagonal block on U = L^T, on one CTA:
+// blk the block's L (pitch pb, lower part), zt its z (bs x k), x on
+// return.  By sub-blocks of 32 rows, the last first: a warp a right-hand
+// side solves the sub-block (a lane a row, x[r] = z[r] / l[r][r] handed on
+// by shuffle, no block barrier a row), then each row above takes the
+// sub-block's x; so each element's subtractions z[i] -= l[r][i] x[r] come
+// for r descending, directly into z.  Ends on a barrier.
+__device__ __forceinline__ void tiled_diag_solve(const float* blk, float* zt,
+                                                 int bs, int k, int pb) {
+  const int tid = threadIdx.x;
+  const int lid = tid & 31;
+  const int warp = tid >> 5;
+  for (int b0 = (bs - 1) / 32 * 32; b0 >= 0; b0 -= 32) {
+    const int nb = min(32, bs - b0);
+    const float* lb = blk + b0 * pb + b0;
+    for (int q = warp; q < k; q += kTcWarps) {
+      float z = lid < nb ? zt[(b0 + lid) * k + q] : 0.0f;
+      for (int r = nb - 1; r >= 0; --r) {
+        const float xr = __shfl_sync(0xffffffffu, z, r) / lb[r * pb + r];
+        if (lid == r)
+          z = xr;
+        else if (lid < r)
+          z = z - lb[r * pb + lid] * xr;
+      }
+      if (lid < nb) zt[(b0 + lid) * k + q] = z;
+    }
+    __syncthreads();
+    for (GridStep g(k); g.r < b0; g.next()) {
+      float z = zt[g.r * k + g.c];
+      for (int r = b0 + nb - 1; r >= b0; --r)
+        z = z - blk[r * pb + g.r] * zt[r * k + g.c];
+      zt[g.r * k + g.c] = z;
+    }
+    __syncthreads();
+  }
+}
+
+// The back substitution of K12 and K14 on U = L^T over the slabs in
+// reverse, left-looking: for the slab at columns o..o+bs, z[o + j] =
+// y[o + j] - sum over rows r >= o + bs of L[r][o + j] x[r] (the slab's
+// rows dealt to the ranks in contiguous blocks; the rows r staged
+// kRowChunk at a time, each element's partial sum kept in shared memory
+// between stages), then rank 0 solves the diagonal block
+// (tiled_diag_solve).  y holds x on return.  Entered after a cluster
+// barrier; leaves after one.
 template <int kT, class Clock>
 __device__ inline void tiled_backsub(const float* a, float* y, int n, int k,
                                      int bs, bool vec4, const TcCluster& cl,
@@ -613,8 +660,6 @@ __device__ inline void tiled_backsub(const float* a, float* y, int n, int k,
   float* ch = smem + L.chunk;
   float* ych = smem + L.ych;
   const int tid = threadIdx.x;
-  const int lid = tid & 31;
-  const int warp = tid >> 5;
   const int nt = kTcThreads;
   const size_t ld = n;
   const size_t kk = k;
@@ -650,32 +695,7 @@ __device__ inline void tiled_backsub(const float* a, float* y, int n, int k,
       copy_block(zt, bs * k, y + o * kk, 0, 1, bs * k, vec4);
       cp_async_wait_all();
       __syncthreads();
-      // by sub-blocks of 32 rows, the last first: a warp a right-hand side
-      // solves the sub-block (a lane a row, x[r] handed on by shuffle),
-      // then each row above takes the sub-block's x in descending order
-      for (int b0 = (bs - 1) / 32 * 32; b0 >= 0; b0 -= 32) {
-        const int nb = min(32, bs - b0);
-        const float* lb = blk + b0 * pb + b0;
-        for (int q = warp; q < k; q += kTcWarps) {
-          float z = lid < nb ? zt[(b0 + lid) * k + q] : 0.0f;
-          for (int r = nb - 1; r >= 0; --r) {
-            const float xr = __shfl_sync(0xffffffffu, z, r) / lb[r * pb + r];
-            if (lid == r)
-              z = xr;
-            else if (lid < r)
-              z = z - lb[r * pb + lid] * xr;
-          }
-          if (lid < nb) zt[(b0 + lid) * k + q] = z;
-        }
-        __syncthreads();
-        for (GridStep g(k); g.r < b0; g.next()) {
-          float z = zt[g.r * k + g.c];
-          for (int r = b0 + nb - 1; r >= b0; --r)
-            z = z - blk[r * pb + g.r] * zt[r * k + g.c];
-          zt[g.r * k + g.c] = z;
-        }
-        __syncthreads();
-      }
+      tiled_diag_solve(blk, zt, bs, k, pb);
       for (int e = tid; e < bs * k; e += nt) y[o * kk + e] = zt[e];
     }
     cl.sync();                  // the slab's x whole
@@ -683,7 +703,86 @@ __device__ inline void tiled_backsub(const float* a, float* y, int n, int k,
   }
 }
 
-// One lane of K12 or K14 on its cluster: the stamps' clock, the cluster's
+// K10's back substitution on U = L^T in the order of the reference's
+// chain (back_substitution_step), by slabs in reverse.  Every rank holds
+// the slab's diagonal block (blk) and z (zs) in shared memory and solves
+// it itself (tiled_diag_solve: subtractions descending, directly into z;
+// the same bits on every rank); rank 0 stores x.  Then every row i above
+// the slab takes the slab's x one subtraction at a time, y[i] -= L[r][i]
+// x[r] for r = o + bs - 1 down to o: the next slab's bs rows by every rank
+// into its own shared memory (zn, the next z, with no trip through
+// device memory), the rows above those dealt to the ranks' threads
+// (element e to thread e % (C x kTcThreads) of the cluster) directly into
+// y, while the next block's L flies in by cp.async; a cluster barrier, one
+// a slab.  So each element of x takes exactly the chain's operations in
+// the chain's order, on every plan.  Row i's L[r][i] are read from the
+// transposed copy the factor left in the upper triangle (row i, columns
+// o..o+bs: contiguous).  y holds x on return.  Entered after a cluster
+// barrier.
+template <int kT, class Clock>
+__device__ inline void tiled_backsub_chain(const float* a, float* y, int n,
+                                           int k, int bs, bool vec4,
+                                           const TcCluster& cl, float* smem,
+                                           Clock& clk) {
+  const TiledLayout L = tiled_layout(k, bs, kT, n > bs);
+  const int pb = L.pb;
+  float* blk = smem + L.blk;
+  float* zs = smem + L.yb;      // the slab's z, then its x (bs x k)
+  float* zn = smem + L.ybf;     // the next slab's z
+  const size_t ld = n;
+  const size_t kk = k;
+  const int tid = threadIdx.x;
+  const int me = cl.rank * kTcThreads + tid;
+  const int all = cl.c * kTcThreads;
+  // row i's subtractions of the slab's x, r descending
+  const auto chain = [&](int o, int i, int q, float z) {
+    const float* lt = a + i * ld + o;       // L[o..o+bs)[i]
+    int r = bs - 1;
+    if (vec4) {                 // bs % 4 == 0: r - 3 on 16 bytes
+#pragma unroll 4
+      for (; r >= 3; r -= 4) {
+        const float4 l4 = __ldcg(reinterpret_cast<const float4*>(lt + r - 3));
+        z = z - l4.w * zs[r * k + q];
+        z = z - l4.z * zs[(r - 1) * k + q];
+        z = z - l4.y * zs[(r - 2) * k + q];
+        z = z - l4.x * zs[(r - 3) * k + q];
+      }
+    }
+    for (; r >= 0; --r) z = z - __ldcg(lt + r) * zs[r * k + q];
+    return z;
+  };
+  int o = n - bs;
+  copy_block(blk, pb, a + o * ld + o, ld, bs, bs, vec4);
+  copy_block(zs, bs * k, y + o * kk, 0, 1, bs * k, vec4);
+  cp_async_wait_all();
+  __syncthreads();
+  for (;; o -= bs) {
+    tiled_diag_solve(blk, zs, bs, k, pb);
+    clk.mark(kTpBacksub);
+    if (cl.rank == 0)
+      for (int e = tid; e < bs * k; e += kTcThreads) y[o * kk + e] = zs[e];
+    if (o == 0) break;
+    const int on = o - bs;      // the next slab
+    copy_block(blk, pb, a + on * ld + on, ld, bs, bs, vec4);
+    for (int e = tid; e < bs * k; e += kTcThreads) {
+      const int i = on + e / k;
+      const int q = e % k;
+      zn[e] = chain(o, i, q, __ldcg(y + i * kk + q));
+    }
+    for (int e = me; e < on * k; e += all) {
+      const int i = e / k;
+      y[e] = chain(o, i, e - i * k, __ldcg(y + e));
+    }
+    cp_async_wait_all();
+    cl.sync();                  // the rows above whole, zn and blk in
+    clk.mark(kTpChain);
+    float* z = zs;
+    zs = zn;
+    zn = z;
+  }
+}
+
+// One lane of K10, K12 or K14 on its cluster: the stamps' clock, the cluster's
 // place, and the threshold's block maximum.
 template <bool kStamp>
 struct TiledLane {

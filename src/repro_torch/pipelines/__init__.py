@@ -36,8 +36,8 @@ version (``*_plain``), and a device-taking public wrapper.  The kernel
 registry (``repro_torch.kernels``) binds them to the serving stack.
 """
 from repro_torch.pipelines.cholesky_solve import (  # noqa: F401
-    TILED_VMEM_BUDGET_BYTES, CholTiledPlan, chol_panel_plan,
-    chol_tiled_forms, chol_tiled_plan, cholesky_solve,
+    TILED_VMEM_BUDGET_BYTES, CholTiledPlan, blocked_rhs_groups,
+    chol_panel_plan, chol_tiled_forms, chol_tiled_plan, cholesky_solve,
     cholesky_solve_blocked,
     cholesky_solve_blocked_fits, cholesky_solve_blocked_fused,
     cholesky_solve_blocked_plain, cholesky_solve_fused, cholesky_solve_plain, cholesky_solve_tiled,
@@ -74,6 +74,7 @@ __all__ = [
     "QrClusterPlan", "qr_cluster_plan", "qr_cluster_forms",
     "cholesky_solve_blocked", "cholesky_solve_blocked_fused",
     "cholesky_solve_blocked_plain", "cholesky_solve_blocked_fits",
+    "blocked_rhs_groups",
     "qr_solve_blocked", "qr_solve_blocked_fused", "qr_solve_blocked_plain",
     "qr_solve_blocked_fits",
     "TILED_VMEM_BUDGET_BYTES", "tiled_block_size", "tiled_vmem_floats",

@@ -340,23 +340,43 @@ def cholesky_solve_blocked_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 _BLOCKED = CudaKernel(
     "cholesky_solve_blocked", "cholesky_solve_blocked_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float],
-    "cholesky_solve_blocked_smem", 3,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    + [ctypes.c_int] * 3,
+    None, 1,
     source="src/repro_torch/csrc/cholesky_solve_blocked.cu",
     replaces="src/repro/pipelines/cholesky_solve.py:244 "
              "cholesky_solve_blocked",
 )
 
 
+def blocked_rhs_groups(n: int, k: int, bs: int) -> tuple:
+    """How K10 takes ``k`` right-hand sides at (n, bs): ``(width,
+    groups)``, the column groups [q0, q1) a launch each, of ``width``
+    columns (the last one's missing columns zero and dropped), as few as
+    :func:`chol_tiled_max_k` allows.  A column's operations do not depend
+    on the others', so a group's answer is the whole k's bit for bit."""
+    if k < 1:
+        return 0, []
+    groups = -(-k // chol_tiled_max_k(n, bs))
+    width = -(-k // groups)
+    return width, [(q, min(k, q + width)) for q in range(0, k, width)]
+
+
 def cholesky_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
                                  bs: int | None = None,
-                                 eps: float = DEFAULT_EPS) -> torch.Tensor:
+                                 eps: float = DEFAULT_EPS,
+                                 plan: CholTiledPlan | None = None
+                                 ) -> torch.Tensor:
     """Blocked SPD solve — the mid-range large-n path (the registry's
     ``blocked`` variant, n >= 128 with n % 32 == 0).  Same contract as
     :func:`cholesky_solve_fused`; panels of ``bs`` columns (default: 64
-    when it divides N, else 32).  K10 on a CUDA tensor (one launch, the
-    working matrix in a device work buffer), its plain version on a CPU
-    one."""
+    when it divides N, else 32).  K10 on a CUDA tensor (a cluster launch
+    on ``plan``, default :func:`chol_tiled_plan`'s, a column group of the
+    right-hand sides at a time, :func:`blocked_rhs_groups`; L in a device
+    work buffer), refused with ValueError past
+    :func:`cholesky_solve_blocked_fits`; its plain version on a CPU one.
+    Every plan gives the same bits; a plan off the forms raises
+    ValueError on every device."""
     dev = check_f32("cholesky_solve_blocked", a, b)
     bsz, n, n2 = a.shape
     b2, n3, m = b.shape
@@ -364,24 +384,48 @@ def cholesky_solve_blocked_fused(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"cholesky_solve_blocked: shapes {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
     bs = block_size(n, bs)
+    width, groups = blocked_rhs_groups(n, m, bs)
+    if plan is not None and m:
+        plan = chol_tiled_check("cholesky_solve_blocked", plan, bsz, n,
+                                width, bs)
     if dev.type == "cpu":
         return cholesky_solve_blocked_plain(a, b, bs=bs, eps=eps)
+    if not cholesky_solve_blocked_fits(n, m, bs):
+        raise ValueError(f"cholesky_solve_blocked: n = {n}, k = {m}, bs = "
+                         f"{bs} is past the blocked rung's shared memory "
+                         f"(cholesky_solve_blocked_fits); the tiled K12 "
+                         f"serves it")
     x = torch.empty_like(b)
-    if bsz:
-        work = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
-        _BLOCKED.launch(dev, (n, m, bs), a.data_ptr(), b.data_ptr(),
-                        x.data_ptr(), work.data_ptr(), bsz, n, m, bs, eps)
+    if not (bsz and m):
+        return x
+    plan = plan or chol_tiled_plan(bsz, n, width, bs, "cholesky_solve_blocked")
+    work = torch.empty((bsz, n, n), dtype=torch.float32, device=dev)
+    for q0, q1 in groups:
+        bg, xg = b, x
+        if len(groups) > 1:
+            bg = b.new_zeros((bsz, n, width))
+            bg[:, :, :q1 - q0] = b[:, :, q0:q1]
+            xg = torch.empty_like(bg)
+        _BLOCKED.launch(dev, (plan.smem_bytes,), a.data_ptr(), bg.data_ptr(),
+                        xg.data_ptr(), work.data_ptr(), bsz, n, width, bs,
+                        eps, plan.clusters, plan.tile, plan.smem_bytes)
+        if len(groups) > 1:
+            x[:, :, q0:q1] = xg[:, :, :q1 - q0]
     return x
 
 
 def cholesky_solve_blocked_fits(n: int, m: int,
                                 bs: int | None = None) -> bool:
-    """Whether K10 can launch at per-lane shapes (n, n), (n, m): its
-    panel of n (bs + 1) floats and the rhs sit in shared memory, which
-    at bs = 64 holds them only up to n = 832 (the tiled K12 serves
-    larger n)."""
-    return (_BLOCKED.smem_bytes(n, m, block_size(n, bs))
-            <= common.MAX_SMEM_BYTES)
+    """Whether the blocked rung takes per-lane shapes (n, n), (n, m): the
+    rule of the one-CTA K10 the cluster form replaced, whose panel of
+    n (bs + 1) floats, y (n m), a column of L and a row of x had to fit
+    one CTA's shared memory — up to n = 832 at bs = 64 (the tiled K12
+    serves larger n).  The dispatcher's choices follow it; the cluster
+    form takes every shape it admits (:func:`chol_tiled_plan`, a column
+    group at a time)."""
+    bs = block_size(n, bs)
+    floats = n * (bs + 1) + n * m + n + m + 1
+    return 4 * floats <= common.MAX_SMEM_BYTES
 
 
 def cholesky_solve_blocked(a, b, *, bs: int | None = None,
@@ -525,12 +569,13 @@ TILED_THREADS = 256                  # a CTA (the wide tile's block)
 TILED_ROW_CHUNK = 64                 # rows of L21 a pass (kRowChunk)
 TILED_MAX_PANEL = 256                # bs, at most (kTcMaxPanel)
 TILED_MIN_BLOCKS = 2                 # CTAs an SM the instances ask ptxas for
-TILED_KERNELS = ("cholesky_solve_tiled", "mmse_equalize_tiled")
+TILED_KERNELS = ("cholesky_solve_tiled", "mmse_equalize_tiled",
+                 "cholesky_solve_blocked")
 
 
 class CholTiledPlan(NamedTuple):
-    """How K12 and K14 run a lane: on a cluster of ``clusters`` CTAs of
-    ``threads`` threads and ``smem_bytes`` of dynamic shared memory each,
+    """How K10, K12 and K14 run a lane: on a cluster of ``clusters`` CTAs
+    of ``threads`` threads and ``smem_bytes`` of dynamic shared memory each,
     the products in ``tile`` x ``tile`` wide tiles; the matrix in the
     lane's device work buffer, the right-hand sides in the output."""
     clusters: int
@@ -543,17 +588,22 @@ def _align4(floats: int) -> int:
     return -(-floats // 4) * 4
 
 
-def chol_tiled_smem(k: int, bs: int, tile: int) -> int:
+def chol_tiled_smem(k: int, bs: int, tile: int, below: bool = True) -> int:
     """Dynamic shared memory of a CTA (``tiled_layout`` in
     ``csrc/tiled_chol.cuh``): the diagonal block (bs rows of pitch
     align4(bs) + 4), the pivots' rsqrt, its rows of y in work and
     finished (bs x k each), the rows of L21 (64 rows of the block's pitch)
     or the wide tile's two stages (2 x 2 x 2048 floats), whichever is
     larger, their rows of y (64 x k) and 32 floats of reduction scratch.
-    Independent of n and m."""
-    pb = _align4(bs) + 4
+    ``below`` False (a lane of one panel, n = bs: no rows of L21, no
+    trailing update) drops the rows of L21, the stages and their rows of
+    y, and the block's pitch is align4(bs).  Independent of n and m
+    otherwise."""
+    pb = _align4(bs) + (4 if below else 0)
     yb = bs * pb + _align4(bs)
     chunk = _align4(_align4(yb + bs * k) + bs * k)
+    if not below:
+        return 4 * (chunk + 32)
     wide = 2 * 2 * (2048 // tile) * tile
     return 4 * (chunk + max(TILED_ROW_CHUNK * pb, wide)
                 + TILED_ROW_CHUNK * k + 32)
@@ -564,7 +614,7 @@ def _check_tiled_shape(n: int, k: int, bs: int, kernel: str,
     if kernel not in TILED_KERNELS:
         raise ValueError(f"chol_tiled_plan: kernel {kernel!r}")
     if not (1 <= bs <= TILED_MAX_PANEL and n % bs == 0 and k >= 1
-            and (kernel == "cholesky_solve_tiled" or (m or 0) >= n)):
+            and (kernel != "mmse_equalize_tiled" or (m or 0) >= n)):
         raise ValueError(f"chol_tiled_plan: {kernel} n = {n}, k = {k}, "
                          f"bs = {bs}, m = {m}")
 
@@ -572,14 +622,16 @@ def _check_tiled_shape(n: int, k: int, bs: int, kernel: str,
 def chol_tiled_forms(n: int, k: int, bs: int,
                      kernel: str = "cholesky_solve_tiled",
                      m: int | None = None) -> list:
-    """Every plan K12 (``kernel`` "cholesky_solve_tiled") or K14
-    ("mmse_equalize_tiled", ``m`` channel rows) can run at (n, k, bs):
-    each cluster size and each tile whose CTA fits the card's shared
-    memory.  They all give the same bits."""
+    """Every plan K12 (``kernel`` "cholesky_solve_tiled"), K14
+    ("mmse_equalize_tiled", ``m`` channel rows) or K10
+    ("cholesky_solve_blocked") can run at (n, k, bs): each cluster size
+    and each tile whose CTA fits the card's shared memory.  They all give
+    the same bits."""
     _check_tiled_shape(n, k, bs, kernel, m)
-    out = [CholTiledPlan(c, TILED_THREADS, chol_tiled_smem(k, bs, t), t)
+    smem = {t: chol_tiled_smem(k, bs, t, n > bs) for t in TILED_TILES}
+    out = [CholTiledPlan(c, TILED_THREADS, smem[t], t)
            for c in TILED_CLUSTER_SIZES for t in TILED_TILES
-           if chol_tiled_smem(k, bs, t) <= PANEL_SMEM_BYTES]
+           if smem[t] <= PANEL_SMEM_BYTES]
     if not out:
         raise ValueError(f"chol_tiled_plan: {kernel} k = {k}, bs = {bs} "
                          f"fits no CTA's shared memory")
@@ -587,8 +639,25 @@ def chol_tiled_forms(n: int, k: int, bs: int,
 
 
 @functools.lru_cache(maxsize=None)
+def chol_tiled_max_k(n: int, bs: int) -> int:
+    """The most right-hand sides a CTA of the tiled core holds at (n, bs)
+    at every product tile (:func:`chol_tiled_smem` within the card's
+    shared memory); ValueError where not one fits."""
+    def fits(k):
+        return all(chol_tiled_smem(k, bs, t, n > bs) <= PANEL_SMEM_BYTES
+                   for t in TILED_TILES)
+    if not fits(1):
+        raise ValueError(f"chol_tiled_plan: bs = {bs} fits no CTA's shared "
+                         f"memory at n = {n}")
+    k = 1
+    while fits(k + 1):
+        k += 1
+    return k
+
+
+@functools.lru_cache(maxsize=None)
 def chol_tiled_clusters_at_once(kernel: str, plan: CholTiledPlan) -> int:
-    """Clusters of ``plan`` the card holds at once for K12 or K14: the
+    """Clusters of ``plan`` the card holds at once for K10, K12 or K14: the
     card's ``cudaOccupancyMaxActiveClusters`` (asked once a plan), an
     H100's on the CPU (``common.clusters_at_once``)."""
     return common.clusters_at_once(
@@ -598,8 +667,8 @@ def chol_tiled_clusters_at_once(kernel: str, plan: CholTiledPlan) -> int:
 
 def chol_tiled_occupancy(kernel: str, plan: CholTiledPlan) -> int:
     """``cudaOccupancyMaxActiveClusters`` of K12 (``kernel``
-    "cholesky_solve_tiled") or K14 ("mmse_equalize_tiled") at ``plan``
-    (-1 where the query fails)."""
+    "cholesky_solve_tiled"), K14 ("mmse_equalize_tiled") or K10
+    ("cholesky_solve_blocked") at ``plan`` (-1 where the query fails)."""
     return common.cluster_occupancy(kernel + "_clusters", plan.clusters,
                                     plan.tile, plan.smem_bytes)
 
@@ -630,23 +699,26 @@ def chol_tiled_rows_of(bs: int, c: int) -> list:
 # tile element a depth step, "filter" a matched-filter depth step, "sums"
 # a row of the back substitution's sums, "solve" a column of its diagonal
 # blocks, "load" an element of A's lower triangle, "sync" a cluster
-# barrier a log2 C.
+# barrier a log2 C; "chain" (K10's alone, fitted to K10's sweep, the rest
+# kept) a step of a thread's pass over the rows above a slab.
 CHOL_LANE_CYCLES = {
     "diag": {64: 860.9, 128: 1099.0}, "rows": {64: 3.288, 128: 4.356},
     "trail": {64: 0.04567, 128: 0.03232},
     "gram": {64: 0.03019, 128: 0.02405},
     "filter": {64: 127.8, 128: 134.4}, "sums": {64: 78.56, 128: 86.72},
     "solve": {64: 332.5, 128: 354.3}, "load": {64: 0.05154, 128: 0.05272},
-    "sync": {64: 1188.0, 128: 0.0}}
+    "sync": {64: 1188.0, 128: 0.0}, "chain": {64: 86.84, 128: 94.54}}
 
 
 def chol_lane_units(n: int, k: int, bs: int, plan: CholTiledPlan,
                     kernel: str = "cholesky_solve_tiled",
                     m: int | None = None) -> dict:
-    """The work of one lane of K12 / K14 at (n, k), panels of ``bs``, on
-    ``plan``, phase by phase, on the rank that takes the most of it by the
-    kernels' deal (:func:`chol_tiled_deal`, :func:`chol_tiled_rows_of`):
-    the units :data:`CHOL_LANE_CYCLES` prices."""
+    """The work of one lane of K12 / K14 / K10 at (n, k), panels of
+    ``bs``, on ``plan``, phase by phase, on the rank that takes the most
+    of it by the kernels' deal (:func:`chol_tiled_deal`,
+    :func:`chol_tiled_rows_of`; K10's chain takes the next slab's rows on
+    every rank and deals the rows above them round robin over the
+    cluster's threads): the units :data:`CHOL_LANE_CYCLES` prices."""
     c, t = plan.clusters, plan.tile
 
     def most(units):            # the longest rank's share, dealt round robin
@@ -655,14 +727,22 @@ def chol_lane_units(n: int, k: int, bs: int, plan: CholTiledPlan,
     j0, j1 = chol_tiled_rows_of(bs, c)[0]
     passes = -(-(j1 - j0) * k // TILED_THREADS)
     units = {"diag": n, "solve": n, "rows": 0, "trail": 0, "sums": 0,
-             "gram": 0, "filter": 0, "load": 0,
+             "gram": 0, "filter": 0, "load": 0, "chain": 0,
              "sync": (4 * n // bs + 1) * math.log2(c)}
+    chain = kernel == "cholesky_solve_blocked"
     for o in range(0, n, bs):
         rest = n - o - bs
         units["rows"] += most(-(-rest // TILED_ROW_CHUNK)) * bs * bs
         tiles = -(-rest // t)
         units["trail"] += most(tiles * (tiles + 1) // 2) * t * t * bs
-        units["sums"] += passes * rest
+        if chain and o:         # the rows above the slab at o by passes:
+            own = -(-bs * k // TILED_THREADS)     # the next slab's, a rank's
+            dealt = -(-(o - bs) * k // (TILED_THREADS * c))    # the rest
+            units["chain"] += (own + dealt) * bs
+        elif not chain:
+            units["sums"] += passes * rest
+    if chain:                   # one barrier a slab, not two
+        units["sync"] = 3 * n // bs * math.log2(c)
     if kernel == "mmse_equalize_tiled":
         tiles = -(-n // t)
         units["gram"] = most(tiles * (tiles + 1) // 2) * t * t * m
@@ -675,8 +755,8 @@ def chol_lane_units(n: int, k: int, bs: int, plan: CholTiledPlan,
 def chol_lane_cycles(n: int, k: int, bs: int, plan: CholTiledPlan,
                      kernel: str = "cholesky_solve_tiled",
                      m: int | None = None) -> float:
-    """The modelled SM cycles of one lane of K12 / K14 at (n, k), panels
-    of ``bs``, on ``plan``: :func:`chol_lane_units` priced by
+    """The modelled SM cycles of one lane of K12 / K14 / K10 at (n, k),
+    panels of ``bs``, on ``plan``: :func:`chol_lane_units` priced by
     :data:`CHOL_LANE_CYCLES`."""
     return sum(units * CHOL_LANE_CYCLES[phase][plan.tile]
                for phase, units in chol_lane_units(n, k, bs, plan, kernel,
@@ -686,8 +766,9 @@ def chol_lane_cycles(n: int, k: int, bs: int, plan: CholTiledPlan,
 def chol_tiled_plan(batch: int, n: int, k: int, bs: int,
                     kernel: str = "cholesky_solve_tiled",
                     m: int | None = None) -> CholTiledPlan:
-    """The one plan of K12 (``kernel`` "cholesky_solve_tiled") or K14
-    ("mmse_equalize_tiled", ``m`` channel rows) for ``batch`` lanes at
+    """The one plan of K12 (``kernel`` "cholesky_solve_tiled"), K14
+    ("mmse_equalize_tiled", ``m`` channel rows) or K10
+    ("cholesky_solve_blocked") for ``batch`` lanes at
     (n, k) with panels of ``bs``: of the shape's forms
     (:func:`chol_tiled_forms`), the one whose waves of the clusters the
     card holds at once (:func:`chol_tiled_clusters_at_once`) times its
@@ -709,8 +790,8 @@ def chol_tiled_plan(batch: int, n: int, k: int, bs: int,
 def chol_tiled_check(kernel: str, plan: CholTiledPlan | None, batch: int,
                      n: int, k: int, bs: int,
                      m: int | None = None) -> CholTiledPlan:
-    """The plan of a K12 / K14 call: ``plan`` if it is one of the shape's
-    forms (ValueError where it is not, on every device), else
+    """The plan of a K12 / K14 / K10 call: ``plan`` if it is one of the
+    shape's forms (ValueError where it is not, on every device), else
     :func:`chol_tiled_plan`'s."""
     if plan is None:
         return chol_tiled_plan(batch, n, k, bs, kernel, m)
@@ -778,25 +859,27 @@ def cholesky_solve_tiled(a, b, *, bs: int | None = None,
 # ---------------------------------------------------------------------------
 
 TILED_PHASES = ("load", "gram", "filter", "diag", "update", "walk", "rows",
-                "trail", "sums", "backsub")
-"""The phases a stamped K12 / K14 lane is split into
-(``csrc/phase_clock.cuh``): the load (K12: A's lower triangle copied into
-the work buffer and the threshold; K14: the threshold from G's
-diagonal), K14's Gram and matched filter; summed over the panels the
-diagonal block (its copy in, corners and rows: "diag"; its rank-4
-updates: "update"), the rows of L21 (the column walk: "walk"; their copy
-in, scale, stores and rows of y: "rows") and the trailing update; summed
-over the back substitution's slabs its sums over the rows below ("sums")
-and its diagonal block's solve ("backsub").  Each ends at a barrier,
-waits included, so they add up to the lane."""
+                "trail", "sums", "backsub", "chain")
+"""The phases a stamped K12 / K14 / K10 lane is split into
+(``csrc/phase_clock.cuh``): the load (K10, K12: B copied into the output
+and the threshold; K14: the threshold from G's diagonal), K14's Gram and
+matched filter; summed over the panels the diagonal block (its copy in,
+corners and rows: "diag"; its rank-4 updates: "update"), the rows of L21
+(the column walk: "walk"; their copy in, scale, stores and rows of y:
+"rows") and the trailing update; summed over the back substitution's
+slabs its sums over the rows below ("sums", K12 and K14), its diagonal
+block's solve ("backsub") and K10's rows above taking the slab's x
+("chain").  Each ends at a barrier, waits included, so they add up to
+the lane."""
 
 
 def chol_tiled_phases(name: str, a: torch.Tensor, b: torch.Tensor, *,
                       bs: int | None = None, sigma2: float = 0.1,
                       eps: float = DEFAULT_EPS,
                       plan: CholTiledPlan | None = None):
-    """K12 (``name`` "cholesky_solve_tiled", ``a`` A and ``b`` B) or K14
-    ("mmse_equalize_tiled", ``a`` H and ``b`` y) through its
+    """K12 (``name`` "cholesky_solve_tiled", ``a`` A and ``b`` B), K10
+    ("cholesky_solve_blocked", A and B) or K14 ("mmse_equalize_tiled",
+    ``a`` H and ``b`` y) through its
     phase-stamped instance on ``plan`` (default :func:`chol_tiled_plan`),
     on CUDA tensors: returns (x, stamps), the stamps a (batch, 2 +
     len(TILED_PHASES)) int64 tensor of each lane's first and last SM
@@ -808,8 +891,9 @@ def chol_tiled_phases(name: str, a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"{name}: the phase stamps run on the card")
     bsz, m, n = a.shape
     k = b.shape[-1]
-    if name == "cholesky_solve_tiled":
-        bs = tiled_admit(name, n, bs, lambda w: tiled_vmem_floats(n, w, k))
+    if name in ("cholesky_solve_tiled", "cholesky_solve_blocked"):
+        bs = (tiled_admit(name, n, bs, lambda w: tiled_vmem_floats(n, w, k))
+              if name == "cholesky_solve_tiled" else block_size(n, bs))
         plan = chol_tiled_check(name, plan, bsz, n, k, bs)
         dims = [bsz, n, k, bs]
         scalars = [eps]

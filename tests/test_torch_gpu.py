@@ -977,6 +977,116 @@ def test_chol_tiled_phase_stamps_are_ordered_and_cover_the_kernel(
         assert torch.equal(st[:, 2:].sum(dim=1), st[:, 1] - st[:, 0])
 
 
+# K10 on the tiled core's clusters: (n, bs, k) at which every plan of
+# chol_tiled_forms gives C = 1's bits, the mid-range sizes at the default
+# panel width, the panel widths 32, 16 and 48, and lanes of one panel (n =
+# bs, no rows below it), the second past a CTA's room for right-hand sides
+BLOCKED_CLUSTER_CASES = [
+    pytest.param(n, bs, k, id=f"{n}-{bs}" + (f"-k{k}" if k != 2 else ""))
+    for n, bs, k in ((128, 64, 2), (256, 64, 2), (128, 32, 2), (128, 16, 2),
+                     (192, 48, 2), (128, 128, 2), (224, 224, 33))]
+
+
+@pytest.mark.parametrize("n,bs,k", BLOCKED_CLUSTER_CASES)
+def test_blocked_forms_equal_bit_for_bit(hopper, n, bs, k):
+    """K10 under every plan of chol_tiled_forms gives C = 1's answer bit
+    for bit, one launch a column group; the clean lanes are within the
+    spec's rtol of the plain version; the poisoned upper triangle leaves
+    its lane equal to the clean one, the deficient lane finite."""
+    kernel = "cholesky_solve_blocked"
+    a, rhs = _chol_tiled_lanes(hopper, "cholesky_solve_tiled", None, n,
+                               seed=n + bs)
+    if k != 2:
+        rng = np.random.default_rng(n + bs + k)
+        rhs = torch.from_numpy(rng.standard_normal((4, n, k))
+                               .astype(np.float32)).to(hopper)
+        rhs[2] = rhs[0]
+    width, groups = tp.blocked_rhs_groups(n, k, bs)
+    forms = tp.chol_tiled_forms(n, width, bs, kernel)
+    assert {p.clusters for p in forms} == {1, 2, 4, 8}
+    outs = []
+    for plan in forms:
+        before = _launches(kernel)
+        outs.append(tp.cholesky_solve_blocked_fused(a, rhs, bs=bs,
+                                                    plan=plan))
+        torch.cuda.synchronize()
+        assert _launches(kernel) == before + len(groups)
+    one = next(o for p, o in zip(forms, outs) if p.clusters == 1)
+    for plan, out in zip(forms, outs):
+        assert torch.equal(_bits(out), _bits(one)), str(plan)
+    clean = [0, 3]
+    want = tp.cholesky_solve_blocked_plain(a[clean], rhs[clean], bs=bs)
+    assert_close(one[clean].cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                 name=f"{kernel} n={n} bs={bs}")
+    assert bool(torch.isfinite(one[1]).all())
+    assert torch.equal(_bits(one[2]), _bits(one[0]))
+
+
+def test_blocked_rhs_alone_equal_inside_the_whole_k(hopper):
+    """A few right-hand sides solved alone give their bits inside the
+    whole k, on the deficient and poisoned lanes too; past the core's
+    room for right-hand sides (k = 300 at n = 128) the wrapper solves
+    column groups, a launch each, with the same bits."""
+    kernel = "cholesky_solve_blocked"
+    a, _ = _chol_tiled_lanes(hopper, "cholesky_solve_tiled", None, 128,
+                             seed=11)
+    rng = np.random.default_rng(12)
+    rhs = torch.from_numpy(rng.standard_normal((4, 128, 300))
+                           .astype(np.float32)).to(hopper)
+    rhs[2] = rhs[0]
+    width, groups = tp.blocked_rhs_groups(128, 300, 64)
+    assert len(groups) == 2 and width == 150
+    before = _launches(kernel)
+    whole = tp.cholesky_solve_blocked_fused(a, rhs)
+    torch.cuda.synchronize()
+    assert _launches(kernel) == before + 2
+    six = tp.cholesky_solve_blocked_fused(a, rhs[:, :, :6].contiguous())
+    assert torch.equal(_bits(six), _bits(whole[:, :, :6].contiguous()))
+    for cols in ([0], [2, 3], [5], [149, 150], [299]):
+        alone = tp.cholesky_solve_blocked_fused(
+            a, rhs[:, :, cols].contiguous())
+        assert torch.equal(_bits(alone),
+                           _bits(whole[:, :, cols].contiguous())), cols
+    assert torch.equal(_bits(whole[2]), _bits(whole[0]))
+
+
+def test_blocked_plan_refused_off_its_forms(hopper):
+    """A K10 plan that is not one of the shape's forms raises before any
+    launch; the C entry refuses bytes off its formula."""
+    a, rhs = _card_case(hopper, "cholesky_solve", 2, 256, seed=3)
+    plan = tp.chol_tiled_plan(2, 256, 2, 64, "cholesky_solve_blocked")
+    with pytest.raises(ValueError, match="not a form"):
+        tp.cholesky_solve_blocked_fused(a, rhs, plan=plan._replace(tile=96))
+    k = next(k for k in KERNELS if k.name == "cholesky_solve_blocked")
+    x = torch.empty_like(rhs)
+    work = torch.empty((2, 256, 256), device=hopper)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k.launch(hopper, (plan.smem_bytes,), a.data_ptr(), rhs.data_ptr(),
+                 x.data_ptr(), work.data_ptr(), 2, 256, 2, 64, 1e-5,
+                 plan.clusters, plan.tile, plan.smem_bytes + 4)
+
+
+def test_blocked_phase_stamps_are_ordered_and_cover_the_kernel(hopper):
+    """K10's phase-stamped instance gives the served answer bit for bit on
+    every form at n = 256 on 32 lanes; each lane's stamps are ordered and
+    its phases add up to its time, the chain's among them."""
+    CHm = importlib.import_module("repro_torch.pipelines.cholesky_solve")
+    kernel = "cholesky_solve_blocked"
+    a, rhs = _card_case(hopper, "cholesky_solve", 32, 256, seed=5)
+    for plan in tp.chol_tiled_forms(256, 2, 64, kernel):
+        before = _launches(kernel)
+        x, stamps = CHm.chol_tiled_phases(kernel, a, rhs, plan=plan)
+        torch.cuda.synchronize()
+        assert _launches(kernel) == before
+        assert torch.equal(x, tp.cholesky_solve_blocked_fused(a, rhs,
+                                                              plan=plan))
+        st = stamps.cpu()
+        assert st.shape == (32, 2 + len(CHm.TILED_PHASES))
+        assert bool((st[:, 1] > st[:, 0]).all() and (st[:, 2:] >= 0).all())
+        assert torch.equal(st[:, 2:].sum(dim=1), st[:, 1] - st[:, 0])
+        assert bool((st[:, 2 + CHm.TILED_PHASES.index("chain")] > 0).all())
+
+
 # K11 and K13 on thread-block clusters: every cluster size and both
 # places of the panel's bands (the CTAs' shared memory, the device work
 # buffer) give the same bits; 2052 x 512 has its bands in the work buffer
