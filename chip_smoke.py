@@ -120,9 +120,13 @@ Phases, each fatal on failure:
                chunked SSD scan) at the registry case, zamba2-2.7b's
                prefill shape (x (4, 32, 512, 160), B/C (4, 512, 64)
                shared, chunk 128), xlstm-125m's (v_aug (4, 4, 512, 385),
-               B/C (4, 4, 512, 192) per head, chunk 64), S < chunk and
-               decays of 1 and 0, float32 and bf16, against its plain
-               version and the sequential oracle; guards: S = 200, a
+               B/C (4, 4, 512, 192) per head, chunk 64), S < chunk,
+               decays of 1 and 0 and 16 chunks at chunk 128, float32 and
+               bf16, against its plain version and the sequential oracle,
+               and every cluster form ``ssm_check_forms`` holds (each
+               cluster size the plan can pick, the narrowest lane) bit
+               for bit the plan's (its plans and each instance's
+               registers printed after the build); guards: S = 200, a
                mismatched K, S not dividing by K21's chunk and a chunk
                past 128 must raise;
   4. serve   — the main paths, each with every kernel's launch count
@@ -189,8 +193,9 @@ Phases, each fatal on failure:
                prefill shapes (beside scaled_dot_product_attention with
                the KV heads repeated, the SM clock printed beside each
                row);
-               K21 at xlstm-125m's and zamba2-2.7b's prefill shapes in
-               bf16 (no PyTorch call computes the scan);
+               K21 at xlstm-125m's and zamba2-2.7b's prefill shapes at
+               S = 128 and 512 in bf16 (no PyTorch call computes the
+               scan), each row with its plan;
                the full-width prefill and decode step as wall time over a
                window of calls (the path is host-bound), and the kernels
                the card runs for each and its busy time by torch.profiler.
@@ -488,18 +493,27 @@ SSM_BF16_RTOL = 8e-3
 # K21 cases (label, B, H, S, P, N, B/C per head, chunk, decay range): the
 # registry case, zamba2-2.7b's prefill at S = 512 (x (4, 32, 512, 160), B/C
 # (4, 512, 64) shared, chunk 128), xlstm-125m's (v_aug (4, 4, 512, 385),
-# B/C (4, 4, 512, 192) per head, chunk 64), S < chunk and the decay limits
-# 1 and 0 (the 1e-20 clamp)
+# B/C (4, 4, 512, 192) per head, chunk 64), S < chunk, the decay limits
+# 1 and 0 (the 1e-20 clamp), more chunks (16) than a cluster's ranks, and
+# both prefill shapes at S = 128 (zamba2's a lane of one chunk, xlstm's two)
 SSM_CASES = (("registry", 1, 2, 64, 4, 8, False, 16, (0.8, 0.999)),
              ("zamba2", LM_BATCH, 32, 512, 160, 64, False, 128,
               (0.8, 0.999)),
              ("xlstm", LM_BATCH, 4, 512, 385, 192, True, 64, (0.8, 0.999)),
              ("S<chunk", 2, 3, 48, 9, 16, True, 128, (0.8, 0.999)),
              ("decay 1", 1, 2, 256, 33, 8, False, 64, (1.0, 1.0)),
-             ("decay 0", 1, 2, 256, 33, 8, False, 64, (0.0, 0.0)))
-# K21 timing rows, the head row (zamba2) last: the two prefill shapes in
-# the path's bf16, (label, B, H, S, P, N, per head, chunk)
-SSM_TIMES = (("xlstm", LM_BATCH, 4, 512, 385, 192, True, 64),
+             ("decay 0", 1, 2, 256, 33, 8, False, 64, (0.0, 0.0)),
+             ("16 chunks", 1, 2, 2048, 33, 8, False, 128, (0.8, 0.999)),
+             ("zamba2 S=128", LM_BATCH, 32, 128, 160, 64, False, 128,
+              (0.8, 0.999)),
+             ("xlstm S=128", LM_BATCH, 4, 128, 385, 192, True, 64,
+              (0.8, 0.999)))
+# K21 timing rows, the head row (zamba2 at S = 512) last: the prefill
+# shapes at both LM_SEQS in the path's bf16, (label, B, H, S, P, N, per
+# head, chunk)
+SSM_TIMES = (("xlstm S=128", LM_BATCH, 4, 128, 385, 192, True, 64),
+             ("zamba2 S=128", LM_BATCH, 32, 128, 160, 64, False, 128),
+             ("xlstm", LM_BATCH, 4, 512, 385, 192, True, 64),
              ("zamba2", LM_BATCH, 32, 512, 160, 64, False, 128))
 
 
@@ -1254,6 +1268,24 @@ def main():
                            | {(n, LANES) for n in SLOT_SIZES}):
         print(f"    {n + 4} x {n} B={lanes}: "
               f"{tuple(S.svd_plan(lanes, n + 4, n))}", flush=True)
+
+    # K21: each instance's registers (ssm_scan_kernel<T, cs16, qt, tiles of
+    # state, stamps>, ssm_gram_kernel), and the plan of each case
+    print("K21 plans (ssm_scan.cu, -Xptxas -v; plan (clusters, tiles, "
+          "slots, smem); clusters at once):", flush=True)
+    ptxas = ptxas_lines(common.build_info["log"], "ssm_scan.cu")
+    for i, line in enumerate(ptxas):
+        if "Compiling entry" in line:
+            print(f"  {line.split(chr(39))[1]}: "
+                  + "; ".join(x.removeprefix("ptxas info    : ")
+                              for x in ptxas[i + 1:i + 3]), flush=True)
+    for label, b, h, s, p, n, _, chunk, *_ in SSM_CASES + SSM_TIMES:
+        cs = min(chunk, s)
+        plan = KS.ssm_plan(b, h, s, p, n, cs)
+        forms = [tuple(f)[:3] for f in KS.ssm_check_forms(b, h, s, p, n, cs)]
+        print(f"    {label} ({b},{h},{s},{p}) N={n} chunk={cs}: "
+              f"{tuple(plan)} {KS.ssm_clusters_at_once(cs, plan)} at "
+              f"once; forms held {forms}", flush=True)
 
     fused = {"cholesky_solve": pp.cholesky_solve_fused,
              "cholesky_solve_blocked": pp.cholesky_solve_blocked_fused,
@@ -2240,11 +2272,24 @@ def main():
         args = ssm_case(b, h, s, p, n, per_head, decays)
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = dtype == torch.bfloat16
-            check("ssm_scan", tuple(t.to(dtype) for t in args),
-                  f"{label} ({b},{h},{s},{p}) N={n} "
-                  f"{'bf16' if bf16 else 'f32'}",
-                  oracle_args=tuple(t.to(dtype).float() for t in args),
-                  rtol=SSM_BF16_RTOL if bf16 else None, chunk=chunk)
+            targs = tuple(t.to(dtype) for t in args)
+            got, _ = check("ssm_scan", targs,
+                           f"{label} ({b},{h},{s},{p}) N={n} "
+                           f"{'bf16' if bf16 else 'f32'}",
+                           oracle_args=tuple(t.float() for t in targs),
+                           rtol=SSM_BF16_RTOL if bf16 else None, chunk=chunk)
+            # every cluster size (and the narrowest lane) the plan can
+            # pick: the plan's bits
+            forms = KS.ssm_check_forms(b, h, s, p, n, min(chunk, s))
+            same = all(all(torch.equal(g, w) for g, w in zip(
+                KS.ssm_scan_fused(*targs, chunk=chunk, plan=f), got))
+                for f in forms[1:])
+            print(f"    forms {[tuple(f)[:3] for f in forms]} bit for bit "
+                  f"the plan's: {same}", flush=True)
+            if not same:
+                failures.append(f"ssm_scan {label} {dtype}: a form's "
+                                f"answer differs from the plan's")
+            del targs, got
         del args
     # the models' route: ops.ssm_scan on its (B, S, H, P) layout with shared
     # or per-head B/C, which the kernel reads through strides (x's sequence
@@ -2796,7 +2841,11 @@ def main():
                          if name in CHOL_TILED_KERNELS
                          + ("cholesky_solve_blocked",)
                          else list(S.svd_plan(lanes, *shapes[0]))
-                         if name == "svd" else None)})
+                         if name == "svd"
+                         else list(KS.ssm_plan(*shapes[0], shapes[2][-1],
+                                               min(kw["chunk"],
+                                                   shapes[0][2])))
+                         if name == "ssm_scan" else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
@@ -2817,6 +2866,8 @@ def main():
                      + ("cholesky_solve_blocked",) else
                      f"  plan (group, threads, held) {sweep[-1]['plan']}"
                      if name == "svd" else
+                     f"  plan (clusters, tiles, slots, smem) "
+                     f"{sweep[-1]['plan']}" if name == "ssm_scan" else
                      f"  plan (threads, bs, "
                      f"{'tile, ' if name == 'qr_solve' else ''}smem) "
                      f"{sweep[-1]['plan']}" if sweep[-1]["plan"] else ""),

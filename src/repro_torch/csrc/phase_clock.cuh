@@ -1,6 +1,6 @@
 // Phase stamps of the large-n Householder solves (K11, K13), of the
-// Cholesky solves on the tiled core (K10, K12, K14) and of the Jacobi SVD
-// (K8).
+// Cholesky solves on the tiled core (K10, K12, K14), of the Jacobi SVD
+// (K8) and of the chunked SSD scan (K21).
 //
 // An instance compiled with kOn = true reads clock64() on thread 0 of the
 // lane's first CTA at each phase edge, each edge right after a barrier
@@ -8,7 +8,8 @@
 // phase's sum.  So the phases tile the lane's time from its first stamp to
 // its last: the sums add up to end - start exactly.  Only the phase-timing
 // entry points (``*_phases_f32``), which scripts/qr_phases.py,
-// scripts/chol_tiled_phases.py and scripts/svd_phases.py call, launch such
+// scripts/chol_tiled_phases.py, scripts/svd_phases.py and
+// scripts/ssm_phases.py call, launch such
 // an instance; the served instances compile kOn = false, where every call
 // below is empty.
 #pragma once
@@ -48,6 +49,17 @@ constexpr int kTiledStampWords = 2 + kTiledPhases;
 enum SvdPhase { kSvLoad, kSvSums, kSvParams, kSvRotate, kSvBarrier,
                 kSvEpilogue, kSvdPhases };
 constexpr int kSvdStampWords = 2 + kSvdPhases;
+
+// The chunked SSD scan (ssm_scan.cu), a CTA (a chunk of a lane at a time):
+// the chunk's staging (its log-decays, C^T, B and first x tile), the
+// log-decay scan, M^T built from G (and B scaled); then per tile of columns
+// M x, the chunk's own state, the wait for h_{c-1}'s tile (and for the next
+// rank's slot), the chain (h_c formed and sent on, or stored), C h_{c-1}
+// with y stored, and the next x tile's stores.  The gram pass's CTAs are
+// stamped apart (start and end).
+enum ScanPhase { kSpLoad, kSpScan, kSpM, kSpMx, kSpState, kSpWait, kSpChain,
+                 kSpCh, kSpX, kScanPhases };
+constexpr int kScanStampWords = 2 + kScanPhases;
 
 template <bool kOn, int kPhases = kQrPhases>
 struct PhaseClock {

@@ -13,8 +13,9 @@ SIMT form at ragged and narrow shapes and at the full-width prefill
 shapes, and its strided route equal bit for bit to the contiguous one),
 the smoke model's prefill on K20 (every bf16 launch in the tensor-core
 form) and the decode golden replay on the card; K21 at its registry
-case and at zamba2-2.7b's and xlstm-125m's prefill shapes, and the
-hybrid and xLSTM smoke prefills with their exact K21 and K20 launch
+case, at zamba2-2.7b's and xlstm-125m's prefill shapes and at 16
+chunks, every cluster form bit for bit the plan's, its phase stamps, and
+the hybrid and xLSTM smoke prefills with their exact K21 and K20 launch
 counts; K7 equal to its plain version bit for bit at every size from 2
 to 16384 points (the warp route up to 1024, the wide route past it), at
 the PUSCH DAG's rows in the stacked layout and on non-finite inputs; K8
@@ -1791,13 +1792,18 @@ SSM_RTOLS = {"float32": (1e-4, 1e-3), "bfloat16": (8e-3, 8e-3)}
 # (label, b, h, s, p, n, per_head, chunk, decays): the registry's shapes,
 # zamba2-2.7b's prefill (N = 64 shared, chunk 128), xlstm-125m's (P = 385
 # with the normaliser channel, N = 192 per head, chunk 64), S < chunk, an
-# odd P and the decay limits 1 and 0 (the 1e-20 clamp)
+# odd P, the decay limits 1 and 0 (the 1e-20 clamp), more chunks (16)
+# than a cluster's ranks, and both prefill shapes at S = 128 (zamba2's a
+# lane of one chunk, xlstm's two)
 SSM_CASES = [("registry", 1, 2, 64, 4, 8, False, 16, (0.8, 0.999)),
              ("zamba2", 4, 32, 512, 160, 64, False, 128, (0.8, 0.999)),
              ("xlstm", 4, 4, 512, 385, 192, True, 64, (0.8, 0.999)),
              ("S<chunk", 2, 3, 48, 9, 16, True, 128, (0.8, 0.999)),
              ("decay 1", 1, 2, 256, 33, 8, False, 64, (1.0, 1.0)),
-             ("decay 0", 1, 2, 256, 33, 8, False, 64, (0.0, 0.0))]
+             ("decay 0", 1, 2, 256, 33, 8, False, 64, (0.0, 0.0)),
+             ("16 chunks", 1, 2, 2048, 33, 8, False, 128, (0.8, 0.999)),
+             ("zamba2 S=128", 4, 32, 128, 160, 64, False, 128, (0.8, 0.999)),
+             ("xlstm S=128", 4, 4, 128, 385, 192, True, 64, (0.8, 0.999))]
 
 
 def _ssm_case(dev, b, h, s, p, n, per_head, decays, seed=0):
@@ -1873,13 +1879,73 @@ def test_ssm_registry_case_and_guards_on_card(hopper):
     x, a, bb, cc = _ssm_case(hopper, 1, 2, 512, 4, 8, False, (0.8, 0.99))
     with pytest.raises(ValueError):              # chunk 256 > 128
         tscan.ssm_scan_fused(x, a, bb, cc, chunk=256)
-    # shared memory: 20736 + 290 N floats at chunk 128 fit 227 KB up to
-    # N = 128; at chunk 64 every N up to 256 fits
+    # shared memory of a CTA's narrowest form (one tile, one slot): 57472
+    # floats at chunk 128, N = 128 fit 227 KB, N = 129 does not (a CTA
+    # holds M^T, C^T, B w, the x tile and a slot of N x 32); at chunk 64
+    # every N up to 256 fits (64-column tiles); every shape the one-CTA
+    # kernel took still fits
     assert tscan.kernel_fits(128, 128) and not tscan.kernel_fits(128, 129)
     assert tscan.kernel_fits(64, 256) and not tscan.kernel_fits(64, 257)
+    assert tscan.ssm_smem(128, 128, 1) <= common.MAX_SMEM_BYTES \
+        < tscan.ssm_smem(128, 129, 1)
+    for cs, n in ((128, 128), (64, 256), (96, 201), (80, 252), (48, 256)):
+        assert tscan.kernel_fits(cs, n)
     x, a, bb, cc = _ssm_case(hopper, 1, 2, 128, 4, 160, False, (0.8, 0.99))
     with pytest.raises(ValueError):              # N 160 past shared memory
         tscan.ssm_scan_fused(x, a, bb, cc, chunk=128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("label,b,h,s,p,n,per_head,chunk,decays", SSM_CASES,
+                         ids=[c[0] for c in SSM_CASES])
+def test_ssm_every_cluster_form_gives_the_plans_bits(
+        hopper, label, b, h, s, p, n, per_head, chunk, decays, dtype):
+    """Every form ssm_check_forms holds (each cluster size the plan can
+    pick, and the narrowest lane) gives the plan's answer bit for bit; a
+    plan off the forms raises ValueError."""
+    args = [t.to(getattr(torch, dtype))
+            for t in _ssm_case(hopper, b, h, s, p, n, per_head, decays)]
+    cs = min(chunk, s)
+    forms = tscan.ssm_check_forms(b, h, s, p, n, cs)
+    want = tscan.ssm_scan_fused(*args, chunk=chunk)
+    for form in forms:
+        got = tscan.ssm_scan_fused(*args, chunk=chunk, plan=form)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), form
+    with pytest.raises(ValueError):
+        tscan.ssm_scan_fused(*args, chunk=chunk,
+                             plan=forms[0]._replace(clusters=3))
+
+
+@pytest.mark.parametrize("b,h,s,p,n,per_head,chunk", [
+    (4, 32, 512, 160, 64, False, 128), (4, 4, 512, 385, 192, True, 64),
+    (1, 2, 2048, 33, 8, False, 128)], ids=["zamba2", "xlstm", "16chunks"])
+def test_ssm_phase_stamps_are_ordered_and_cover_the_cta(hopper, b, h, s, p,
+                                                        n, per_head, chunk):
+    """K21's phase-stamped instance: its answer equals the served
+    kernel's bit for bit at every check form; each scan CTA's stamps are
+    ordered and its phases add up to its time; each gram CTA's clock
+    runs forward."""
+    args = _ssm_case(hopper, b, h, s, p, n, per_head, (0.8, 0.999))
+    before = _launches("ssm_scan")
+    for form in tscan.ssm_check_forms(b, h, s, p, n, chunk):
+        (y, hf), stamps, gram, plan = tscan.ssm_phases(*args, chunk=chunk,
+                                                       plan=form)
+        want = tscan.ssm_scan_fused(*args, chunk=chunk, plan=form)
+        torch.cuda.synchronize()
+        assert plan == form
+        assert torch.equal(y, want[0]) and torch.equal(hf, want[1])
+        st = stamps.cpu()
+        total = st[:, 1] - st[:, 0]
+        assert stamps.shape == (
+            b * h * tscan.ssm_groups(p, chunk, form.tiles) * form.clusters,
+            2 + len(tscan.SSM_PHASES))
+        assert (total > 0).all() and (st[:, 2:] >= 0).all()
+        assert torch.equal(st[:, 2:].sum(dim=1), total)
+        g = gram.cpu()
+        assert (g[:, 1] > g[:, 0]).all()
+    # the stamped instance is not the counted entry
+    assert _launches("ssm_scan") == before + len(
+        tscan.ssm_check_forms(b, h, s, p, n, chunk))
 
 
 def _to_device(tree, dev):
