@@ -85,7 +85,15 @@ Phases, each fatal on failure:
                K16's warp form (a warp a lane, n <= 32, m <= 8) equal to
                its CTA form bit for bit at n = 1, 7, 8, 16, 31, 32 and m
                = 1, 2, 3, 8, both directions, NaN in the unread triangle
-               never leaking;
+               never leaking; K3's and K6's warp forms (a lane on a warp,
+               n <= 32) equal to their CTA forms (the one-CTA kernels of
+               earlier slices) bit for bit at the slot mixes' and DAGs'
+               sizes at B = 3276 and at the
+               served widths (K3 n = 8, 16, 32 on 32 lanes; K6 n = 8 on 4
+               lanes, n = 24 on 32) with a deficient, a zero and a NaN
+               lane, each call one launch of the form it names, and held
+               to their plain versions and oracles at the served widths
+               too (and timed there);
                K19 at 61,440 outputs (one 0.5 ms slot of one antenna at
                122.88 Msps) with 31 and 65 taps; guard cases (NaN in the
                unread triangle of K15 and K16, m = n + 1 and m = 1 for
@@ -355,6 +363,13 @@ PANEL_WIDTHS = (1, 8, 16, 32, 64)
 # 204 x 200 (ragged last panels), its lanes from a generator of their own
 QR_PANEL_SIZES = (128, 200)
 QR_PANEL_WIDTHS = (1, 8, 16, 32)
+# K3's and K6's warp forms: (n, lanes) of the served widths (the slot
+# mixes' 32 lanes; the DAGs' n = 8 on 4 lanes and n = 24 on 32), and the
+# cases held bit for bit to the CTA form (a carrier's width at every
+# slot-mix and DAG size, and the served widths)
+WARP_SERVED = {"mmse_equalize_split": ((8, 32), (16, 32), (32, 32)),
+               "pusch_chain": ((8, 4), (24, 32))}
+WARP_BITS = tuple((n, LANES) for n in (8, 12, 16, 24, 32))
 # K16's warp form against its CTA form: (n, m) of every edge of the warp
 TRI_WARP_NS = (1, 7, 8, 16, 31, 32)
 TRI_WARP_MS = (1, 2, 3, 8)
@@ -1126,6 +1141,15 @@ def main():
               else KCS.tiled_block_size(n))
         return pp.chol_tiled_plan(lanes, n, k, bs, name,
                                   m if name == "mmse_equalize_tiled" else None)
+
+    def lane_form(name, shapes):
+        """The form of a K3 / K6 launch at per-lane ``shapes`` (K3: Hr,
+        Hi, yr, yi; K6: Xp, Yp, y)."""
+        if name == "mmse_equalize_split":
+            (m, n), k = shapes[0], shapes[-1][-1]
+            return pp.mmse_split_plan(m, n, k)
+        (n, p), (m, _), (_, k) = shapes
+        return pp.pusch_chain_plan(n, p, m, k)
 
     def cluster_plan(name, lanes, shapes):
         """The cluster plan of a K11 / K13 launch of ``lanes`` lanes at
@@ -2104,6 +2128,51 @@ def main():
               f"{'all' if not bad else 'not ' + str(bad)}", flush=True)
         if bad:
             failures.append(f"trisolve warp form != CTA form at {bad}")
+    # K3's and K6's warp forms against their CTA forms bit for bit (a
+    # deficient lane, a zero lane and a NaN lane among each batch's), each
+    # default call one launch of the warp form; at the served widths also
+    # against the plain version and the oracle
+    MM = importlib.import_module("repro_torch.pipelines.mmse")
+    PU = importlib.import_module("repro_torch.pipelines.pusch")
+    wgen = torch.Generator(device=dev)
+    wgen.manual_seed(5)
+    bits = lambda t: t.reshape(-1).view(torch.int32)       # noqa: E731
+    for key in WARP_SERVED:
+        k = kern[key]
+        bad = []
+        for n, b in WARP_BITS + WARP_SERVED[key]:
+            m, p = n + 4, 2 * n
+            if key == "mmse_equalize_split":
+                args = [grand(b, m, n, g=wgen), grand(b, m, n, g=wgen),
+                        grand(b, m, 2, g=wgen), grand(b, m, 2, g=wgen)]
+                args[0][1, :, 1] = args[0][1, :, 0]
+                args[1][1, :, 1] = args[1][1, :, 0]
+                args[0][2], args[1][2] = 0.0, 0.0
+                fn = MM.mmse_equalize_split_fused
+            else:
+                args = [grand(b, n, p, g=wgen), grand(b, m, p, g=wgen),
+                        grand(b, m, 2, g=wgen)]
+                args[0][1, 1] = args[0][1, 0]
+                args[1][2] = 0.0
+                fn = PU.pusch_chain_fused
+            args[0][3, 0, 0] = float("nan")
+            before = (k.launches, k.launches_warp)
+            warp = fn(*args)
+            cta = fn(*args, form="cta")
+            torch.cuda.synchronize()
+            if not ((k.launches - before[0], k.launches_warp - before[1])
+                    == (2, 1) and torch.equal(bits(warp), bits(cta))
+                    and bool(torch.isfinite(warp[:3]).all())):
+                bad.append((n, b))
+            del args, warp, cta
+        print(f"  {key:<22} warp form == CTA form bit for bit at (n, "
+              f"lanes) in {WARP_BITS + WARP_SERVED[key]}, deficient, zero "
+              f"and NaN lanes: "
+              f"{'all' if not bad else 'not ' + str(bad)}", flush=True)
+        if bad:
+            failures.append(f"{key} warp form != CTA form at {bad}")
+        for n, b in WARP_SERVED[key]:
+            check(key, slot_case(key, rng, b, n), f"served B={b} n={n}")
     # guard cases: NaN in the triangle a kernel never reads
     a = torch.from_numpy(sample_spd(rng, 2, 16)).to(dev)
     clean = KC.cholesky_fused(a)
@@ -2362,11 +2431,11 @@ def main():
             k.launches_warp = 0
 
     def read_launches(path: str, expect: tuple, expect_global=(),
-                      exact: dict | None = None):
+                      exact: dict | None = None, expect_warp=()):
         """Print and add up the launches since the last reset; fail if a
-        kernel in ``expect`` (a global form in ``expect_global``) never
-        launched or, given ``exact``, if the launched kernels and their
-        counts are not exactly those."""
+        kernel in ``expect`` (a global form in ``expect_global``, a warp
+        form in ``expect_warp``) never launched or, given ``exact``, if
+        the launched kernels and their counts are not exactly those."""
         counts = {k.name: k.launches for k in common.KERNELS}
         glob = {k.name: k.launches_global for k in common.KERNELS
                 if k.launches_global}
@@ -2382,6 +2451,8 @@ def main():
             fail(f"a kernel of the {path} path never launched: {counts}")
         if not all(glob.get(name) for name in expect_global):
             fail(f"a global form of the {path} path never ran: {glob}")
+        if not all(warp.get(name) for name in expect_warp):
+            fail(f"a warp form of the {path} path never ran: {warp}")
         if exact is not None and {n: c for n, c in counts.items() if c} \
                 != exact:
             fail(f"the {path} path launched {counts}, not exactly {exact}")
@@ -2413,7 +2484,8 @@ def main():
     if got != want:
         fail("overload trace replay differs from overload_golden.json")
     read_launches("TTI slot mix", ("cholesky_solve", "mmse_equalize",
-                                   "mmse_equalize_split", "qr_solve"))
+                                   "mmse_equalize_split", "qr_solve"),
+                  expect_warp=("mmse_equalize_split",))
 
     reset_launches()
     fault_trace = str(ROOT / "tests" / "data" / "pusch_fault_trace.json")
@@ -2445,7 +2517,7 @@ def main():
                  f"|out - oracle| {err:.3e}")
     read_launches("served DAGs", ("mmse_equalize", "channel_estimate",
                                   "pusch_chain", "fft", "svd",
-                                  "svd_apply"))
+                                  "svd_apply"), expect_warp=("pusch_chain",))
 
     reset_launches()
     for argv in (["--slots", "8", "--lanes", "32", "--sizes", "128,256"],
@@ -2760,6 +2832,10 @@ def main():
             cases += [(f"n={n} B={b}", n, None, b,
                        lambda n=n, b=b: mid_case(key, b, n), key)
                       for n, b in TILED_CASES + ((512, SERVED_LANES),)]
+        if name in WARP_SERVED:            # the served widths
+            cases += [(f"n={n} B={b}", n, None, b,
+                       lambda n=n, b=b: slot_case(key, rng, b, n), key)
+                      for n, b in WARP_SERVED[name]]
         if name in ("svd", "svd_apply"):   # the served DAGs' widths
             cases += [(f"n={n} B={b}", n, None, b,
                        lambda n=n, b=b: slot_case(key, rng, b, n), key)
@@ -2845,7 +2921,9 @@ def main():
                          else list(KS.ssm_plan(*shapes[0], shapes[2][-1],
                                                min(kw["chunk"],
                                                    shapes[0][2])))
-                         if name == "ssm_scan" else None)})
+                         if name == "ssm_scan"
+                         else [lane_form(name, shapes)]
+                         if name in WARP_SERVED else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
                   f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.5f} ms"
@@ -2868,6 +2946,8 @@ def main():
                      if name == "svd" else
                      f"  plan (clusters, tiles, slots, smem) "
                      f"{sweep[-1]['plan']}" if name == "ssm_scan" else
+                     f"  form {sweep[-1]['plan'][0]}" if name in WARP_SERVED
+                     and form != "global" else
                      f"  plan (threads, bs, "
                      f"{'tile, ' if name == 'qr_solve' else ''}smem) "
                      f"{sweep[-1]['plan']}" if sweep[-1]["plan"] else ""),

@@ -1,16 +1,18 @@
 // Phase stamps of the large-n Householder solves (K11, K13), of the
 // Cholesky solves on the tiled core (K10, K12, K14), of the Jacobi SVD
-// (K8) and of the chunked SSD scan (K21).
+// (K8), of the chunked SSD scan (K21) and of the n <= 32 MMSE solves (K3,
+// K6).
 //
 // An instance compiled with kOn = true reads clock64() on thread 0 of the
 // lane's first CTA at each phase edge, each edge right after a barrier
-// that ends the phase, and adds the cycles since the previous edge to that
-// phase's sum.  So the phases tile the lane's time from its first stamp to
-// its last: the sums add up to end - start exactly.  Only the phase-timing
-// entry points (``*_phases_f32``), which scripts/qr_phases.py,
-// scripts/chol_tiled_phases.py, scripts/svd_phases.py and
-// scripts/ssm_phases.py call, launch such
-// an instance; the served instances compile kOn = false, where every call
+// (in a warp form, a __syncwarp) that ends the phase, and adds the cycles
+// since the previous edge to that phase's sum.  So the phases tile the
+// lane's time from its first stamp to its last: the sums add up to
+// end - start exactly.  Only the phase-timing entry points
+// (``*_phases_f32``), which scripts/qr_phases.py,
+// scripts/chol_tiled_phases.py, scripts/svd_phases.py,
+// scripts/ssm_phases.py and scripts/lane_phases.py call, launch such an
+// instance; the served instances compile kOn = false, where every call
 // below is empty.
 #pragma once
 
@@ -60,6 +62,15 @@ constexpr int kSvdStampWords = 2 + kSvdPhases;
 enum ScanPhase { kSpLoad, kSpScan, kSpM, kSpMx, kSpState, kSpWait, kSpChain,
                  kSpCh, kSpX, kScanPhases };
 constexpr int kScanStampWords = 2 + kScanPhases;
+
+// The split MMSE equalizer (K3) and the PUSCH chain (K6), a lane on a
+// warp: the load; the Gram and matched filter (K6: the pilot Gram and
+// cross product); the factor with its forward substitution; the back
+// substitution; for K6's second chain its Gram of H and matched filter,
+// factor and back substitution; the store.
+enum LanePhase { kLpLoad, kLpGram, kLpFactor, kLpBack, kLpGram2, kLpFactor2,
+                 kLpBack2, kLpStore, kLanePhases };
+constexpr int kLaneStampWords = 2 + kLanePhases;
 
 template <bool kOn, int kPhases = kQrPhases>
 struct PhaseClock {

@@ -1,5 +1,5 @@
 // K5: pilot-based channel estimate, and K6: channel estimate fused with the
-// MMSE equalizer, one CTA per lane.
+// MMSE equalizer, a lane on one CTA (K6: or on one warp).
 //
 // Replaces: src/repro/pipelines/pusch.py, channel_estimate_pallas
 // (_chanest_kernel, _estimate_h, _chol_solve_inline) and pusch_chain_pallas
@@ -23,9 +23,34 @@
 // reuses K1's chol_chain (lane_common.cuh) for both solves: the first with
 // the m antennas as right-hand-side columns, the second with the k data
 // symbols.
+//
+// K6's warp form (n <= 32, k <= 8) runs a lane on one warp, a CTA of 32
+// threads, with no block barrier (warp_chain.cuh), a row a thread:
+// the pilots and their observations are staged row-major 32 pilots at a
+// time at an odd pitch (33), so that the rows of a warp's tiles fall in
+// distinct banks; the pilot Gram's lower tiles and the cross product's
+// tiles, 4 x 4 each, up to four a thread, are summed in registers over
+// the chunks and then written over the pilots (L at warp_pitch(n), Z at
+// warp_pitch(m)); the first chain
+// factors L alone, keeping each step's rsqrt, then solves the m antennas
+// forward and back two columns a thread (the next row's value carried in
+// a register, so a step waits on one multiply or division and one FFMA,
+// the other rows in passes off that chain); the Gram of H = Z^T is summed
+// from Z's rows, the matched filter of a thread's row into its
+// registers, and the second chain runs with the k symbols in registers.
+// A lane takes 4 (max((n + m) (min(p, 32) | 1), n warp_pitch(n) +
+// n warp_pitch(m)) + m k + warp_scratch_floats(n, k) + n) bytes (each part
+// rounded to 16): 10,976 at n = 32, p = 64, m = 36, k = 2, so an SM holds
+// 19 lanes by shared memory and 16 by registers.  The form is
+// pipelines/pusch.py's pusch_chain_plan; every form gives the same bits.
+//
+// The stamped instance (kStamps, pusch_chain_phases_f32) splits a lane of
+// the warp form into phase_clock.cuh's LanePhase.
 #include <cstddef>
 
 #include "lane_common.cuh"
+#include "phase_clock.cuh"
+#include "warp_chain.cuh"
 
 namespace repro_torch {
 namespace {
@@ -140,6 +165,207 @@ pusch_chain_kernel(const float* __restrict__ XP, const float* __restrict__ YP,
   for (int e = threadIdx.x; e < n * k; e += blockDim.x) xl[e] = rhs[e];
 }
 
+// Pilots a chunk of K6's warp form stages (its sums continue from chunk
+// to chunk in order), so that the pilots take no more shared memory than
+// the systems written over them.
+constexpr int kPilotChunk = 32;
+
+// Floats of one lane of the warp form, and the offsets of its parts (a
+// multiple of 4: 16-byte slices).
+struct WarpLane {
+  int pitch, chunk, px, ldz, z, region, floats;
+  __host__ __device__ WarpLane(int n, int p, int m, int k)
+      : pitch(warp_pitch(n)), chunk(p < kPilotChunk ? p : kPilotChunk),
+        px(chunk | 1), ldz(warp_pitch(m)) {
+    z = n * pitch;
+    const int pilots = (n + m) * px;
+    const int sys = z + n * ldz;
+    region = ((pilots > sys ? pilots : sys) + 3) / 4 * 4;
+    floats = region + (m * k + 3) / 4 * 4 + warp_scratch_floats(n, k) + n;
+    floats = (floats + 3) / 4 * 4;
+  }
+};
+
+// Units of 4 x 4 tiles a thread of the warp form sums at once.
+constexpr int kWarpSlots = 4;
+
+// The lane on one warp: see the header.  kK >= k bounds the symbols held
+// in registers.
+template <int kK, bool kStamps>
+__global__ void __launch_bounds__(32)
+pusch_chain_warp_kernel(const float* __restrict__ XP,
+                        const float* __restrict__ YP,
+                        const float* __restrict__ Y, float* __restrict__ X,
+                        int n, int p, int m, int k, float ridge, float sigma2,
+                        float eps, unsigned long long* __restrict__ stamps) {
+  extern __shared__ float4 smem4[];
+  const int t = threadIdx.x;
+  const size_t lane = blockIdx.x;
+  PhaseClock<kStamps, kLanePhases> clk(true);
+  const WarpLane w(n, p, m, k);
+  float* base = reinterpret_cast<float*>(smem4);
+  float* xs = base;                  // n x (chunk | 1) pilots
+  float* ys = xs + n * w.px;         // m x (chunk | 1) observations
+  float* a = base;                   // n x warp_pitch(n), over the pilots
+  float* z = base + w.z;             // n x warp_pitch(m), over the pilots
+  float* yv = base + w.region;       // m x k symbols
+  float* col = yv + (m * k + 3) / 4 * 4;   // scratch
+  float* dinv = col + warp_scratch_floats(n, k);   // n
+
+  const float* xp = XP + lane * n * p;
+  const float* yp = YP + lane * m * p;
+  stage_rows(xp, xs, n, w.chunk, w.px, p);
+  stage_rows(yp, ys, m, w.chunk, w.px, p);
+  stage_rows(Y + lane * m * k, yv, 1, m * k, m * k);
+  stage_wait();
+  clk.mark(kLpLoad);
+
+  // stage 1 products: the pilot Gram's lower tiles, then Xp Yp^T's, a
+  // chunk of pilots at a time
+  const int tiles = (n + 3) / 4;
+  const int ctiles = (m + 3) / 4;
+  const int gram_units = tiles * (tiles + 1) / 2;
+  const int units = gram_units + tiles * ctiles;
+  float acc[kWarpSlots][16];
+  int ti[kWarpSlots], tj[kWarpSlots];
+#pragma unroll
+  for (int s = 0; s < kWarpSlots; ++s) {
+    const int u = t + 32 * s;
+    ti[s] = -1;
+    tj[s] = 0;
+    if (u < gram_units) {
+      tri_tile(u, ti[s], tj[s]);
+    } else if (u < units) {
+      ti[s] = (u - gram_units) / ctiles;
+      tj[s] = tiles + (u - gram_units) % ctiles;   // past the Gram's tiles
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[s][e] = 0.0f;
+  }
+  for (int t0 = 0; t0 < p; t0 += w.chunk) {
+    const int len = p - t0 < w.chunk ? p - t0 : w.chunk;
+    if (t0 > 0) {                    // the next chunk over the last one
+      __syncwarp();
+      stage_rows(xp + t0, xs, n, len, w.px, p);
+      stage_rows(yp + t0, ys, m, len, w.px, p);
+      stage_wait();
+    }
+#pragma unroll
+    for (int s = 0; s < kWarpSlots; ++s) {
+      if (ti[s] < 0) continue;
+      if (tj[s] < tiles)
+        row_tile(xs, w.px, 4 * ti[s], n, xs, w.px, 4 * tj[s], n, len,
+                 acc[s]);
+      else
+        row_tile(xs, w.px, 4 * ti[s], n, ys, w.px, 4 * (tj[s] - tiles), m,
+                 len, acc[s]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kWarpSlots; ++s) {
+    if (ti[s] < 0) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int i = 4 * ti[s] + q;
+        if (tj[s] < tiles) {
+          const int j = 4 * tj[s] + v;
+          if (i < n && j <= i) {
+            const float g = acc[s][q * 4 + v];
+            a[i * w.pitch + j] = (i == j) ? g + ridge : g;
+          }
+        } else {
+          const int c = 4 * (tj[s] - tiles) + v;
+          if (i < n && c < m) z[i * w.ldz + c] = acc[s][q * 4 + v];
+        }
+      }
+  }
+  __syncwarp();
+  clk.mark(kLpGram);
+  // stage 1 chain: factor alone, then the m antennas a column a thread
+  float none[1][1];
+  warp_factor<1, 1>(a, w.pitch, n, warp_threshold<1>(a, w.pitch, n, eps),
+                    col, dinv, none, 0, z, w.ldz, m);
+  clk.mark(kLpFactor);
+  warp_columns_back(a, w.pitch, n, z, w.ldz, m);
+  __syncwarp();
+  clk.mark(kLpBack);
+  // stage 2: the Gram of H = Z^T (its lower tiles over the first chain's
+  // L, which is dead) and the matched filter of this thread's row
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int u = t + 32 * s;
+    if (u >= gram_units) continue;
+    int i0, j0;
+    tri_tile(u, i0, j0);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[s][e] = 0.0f;
+    row_tile(z, w.ldz, 4 * i0, n, z, w.ldz, 4 * j0, n, m, acc[s]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int i = 4 * i0 + q;
+        const int j = 4 * j0 + v;
+        if (i < n && j <= i) {
+          const float g = acc[s][q * 4 + v];
+          a[i * w.pitch + j] = (i == j) ? g + sigma2 : g;
+        }
+      }
+  }
+  float y[1][kK];
+#pragma unroll
+  for (int c = 0; c < kK; ++c) {
+    y[0][c] = 0.0f;
+    if (t >= n || c >= k) continue;
+    float s = 0.0f;
+    for (int r = 0; r < m; ++r) s += z[t * w.ldz + r] * yv[r * k + c];
+    y[0][c] = s;
+  }
+  __syncwarp();
+  clk.mark(kLpGram2);
+  warp_factor<1, kK>(a, w.pitch, n, warp_threshold<1>(a, w.pitch, n, eps),
+                     col, nullptr, y, k);
+  clk.mark(kLpFactor2);
+  warp_back<1, kK>(a, w.pitch, n, col, y, k);
+  clk.mark(kLpBack2);
+  float* xl = X + lane * n * k;
+#pragma unroll
+  for (int c = 0; c < kK; ++c)
+    if (t < n && c < k) xl[t * k + c] = y[0][c];
+  clk.mark(kLpStore);
+  clk.write(stamps + lane * kLaneStampWords);
+}
+
+template <bool kStamps>
+cudaError_t launch_chain_warp(const float* xp, const float* yp,
+                              const float* y, float* x, int batch, int n,
+                              int p, int m, int k, float ridge, float sigma2,
+                              float eps, unsigned long long* stamps,
+                              cudaStream_t s) {
+  const int tiles = (n + 3) / 4;
+  if (n < 1 || n > 32 || k < 1 || k > kWarpMaxRhs || p < 1 || m < 1 ||
+      tiles * (tiles + 1) / 2 + tiles * ((m + 3) / 4) > 32 * kWarpSlots)
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * WarpLane(n, p, m, k).floats;
+#define REPRO_CHAIN_WARP(KK)                                                \
+  {                                                                         \
+    cudaError_t err =                                                       \
+        allow_warp_smem<pusch_chain_warp_kernel<KK, kStamps>>();            \
+    if (err != cudaSuccess) return err;                                     \
+    pusch_chain_warp_kernel<KK, kStamps><<<batch, 32, smem, s>>>(           \
+        xp, yp, y, x, n, p, m, k, ridge, sigma2, eps, stamps);              \
+    return cudaGetLastError();                                              \
+  }
+  if (k == 1) REPRO_CHAIN_WARP(1)
+  if (k == 2) REPRO_CHAIN_WARP(2)
+  if (k <= 4) REPRO_CHAIN_WARP(4)
+  REPRO_CHAIN_WARP(8)
+#undef REPRO_CHAIN_WARP
+}
+
 size_t chanest_smem_bytes(int n, int p, int m) {
   return sizeof(float) * (static_cast<size_t>(p) * (n + 1) + p * (m + 1) +
                           n * n + n * m + n + m + 1);
@@ -164,6 +390,11 @@ size_t pusch_chain_smem(int n, int p, int m, int k) {
   return repro_torch::chain_smem_bytes(n, p, m, k);
 }
 
+// Dynamic shared memory one lane of K6's warp form takes.
+size_t pusch_chain_warp_smem(int n, int p, int m, int k) {
+  return sizeof(float) * repro_torch::WarpLane(n, p, m, k).floats;
+}
+
 // xp (batch, n, p), yp (batch, m, p) -> h (batch, m, n), all float32.
 int channel_estimate_f32(const void* xp, const void* yp, void* h, int batch,
                          int n, int p, int m, float ridge, float eps,
@@ -180,19 +411,40 @@ int channel_estimate_f32(const void* xp, const void* yp, void* h, int batch,
 }
 
 // xp (batch, n, p), yp (batch, m, p), y (batch, m, k) -> x (batch, n, k).
+// warp = 1 runs the warp form (pipelines/pusch.py pusch_chain_plan;
+// refused past n = 32, k = 8 or the tiles four slots a thread hold),
+// warp = 0 the CTA form.
 int pusch_chain_f32(const void* xp, const void* yp, const void* y, void* x,
                     int batch, int n, int p, int m, int k, float ridge,
-                    float sigma2, float eps, void* stream) {
+                    float sigma2, float eps, int warp, void* stream) {
   using namespace repro_torch;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const float* xpf = static_cast<const float*>(xp);
+  const float* ypf = static_cast<const float*>(yp);
+  const float* yf = static_cast<const float*>(y);
+  float* xf = static_cast<float*>(x);
+  if (warp)
+    return launch_chain_warp<false>(xpf, ypf, yf, xf, batch, n, p, m, k,
+                                    ridge, sigma2, eps, nullptr, s);
   const size_t smem = chain_smem_bytes(n, p, m, k);
   cudaError_t err = allow_smem(pusch_chain_kernel, smem);
   if (err != cudaSuccess) return err;
-  pusch_chain_kernel<<<batch, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xp), static_cast<const float*>(yp),
-      static_cast<const float*>(y), static_cast<float*>(x), n, p, m, k,
-      ridge, sigma2, eps);
+  pusch_chain_kernel<<<batch, kThreads, smem, s>>>(xpf, ypf, yf, xf, n, p, m,
+                                                   k, ridge, sigma2, eps);
   return cudaGetLastError();
+}
+
+// The phase-stamped instance of the warp form (scripts/lane_phases.py): x
+// as pusch_chain_f32's and per lane kLaneStampWords words of stamps.
+int pusch_chain_phases_f32(const void* xp, const void* yp, const void* y,
+                           void* x, void* stamps, int batch, int n, int p,
+                           int m, int k, float ridge, float sigma2,
+                           float eps, void* stream) {
+  return repro_torch::launch_chain_warp<true>(
+      static_cast<const float*>(xp), static_cast<const float*>(yp),
+      static_cast<const float*>(y), static_cast<float*>(x), batch, n, p, m,
+      k, ridge, sigma2, eps, static_cast<unsigned long long*>(stamps),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

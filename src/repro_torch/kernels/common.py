@@ -229,8 +229,8 @@ class CudaKernel:
     a run can show that its path went through the kernel.
     ``launches_global`` counts those of them that ran the global form,
     ``launches_tc`` those that the C entry reports in a tensor-core form
-    (K18's and K20's wrappers count it), ``launches_warp`` those in K16's
-    warp form (its wrapper counts it).  ``source`` and ``replaces``
+    (K18's and K20's wrappers count it), ``launches_warp`` those in a
+    warp form (K16's, K3's and K6's wrappers count it).  ``source`` and ``replaces``
     name the CUDA source and the TPU kernel it ports."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,

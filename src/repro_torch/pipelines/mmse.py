@@ -26,7 +26,9 @@ Complex channels are handled two ways:
     the real-embedded 2n x 2n system.  Identical output layout
     [Re x; Im x].  Registered as the ``split_complex`` variant of the
     ``mmse_equalize`` spec; the dispatcher picks it whenever a job
-    presents 4 (split) planes instead of one expanded matrix.
+    presents 4 (split) planes instead of one expanded matrix.  Up to
+    n = 32 a lane runs on one warp (:func:`mmse_split_plan`), past it
+    on a CTA, past shared memory by panels.
 
 Each kernel has a plain PyTorch version in this module with the
 reference's per-lane op order; a CPU tensor takes it, a CUDA tensor the
@@ -48,6 +50,10 @@ from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
                                                   global_plan_args,
                                                   tiled_admit,
                                                   tiled_chain_plain)
+from repro_torch.pipelines.warp_chain import (LANE_PHASES, WARP_MAX_RHS,
+                                              WARP_MAX_ROWS, launch_phases,
+                                              warp_fits, warp_pitch,
+                                              warp_plan, warp_scratch_floats)
 
 
 def mmse_equalize_plain(h: torch.Tensor, y: torch.Tensor, *,
@@ -106,11 +112,39 @@ _KERNEL = CudaKernel(
 _SPLIT_KERNEL = CudaKernel(
     "mmse_equalize_split", "mmse_equalize_split_f32",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-    + [ctypes.c_int] * 3,
+    + [ctypes.c_int] * 4,
     "mmse_equalize_split_smem", 3,
     source="src/repro_torch/csrc/mmse_equalize_split.cu",
     replaces="src/repro/pipelines/mmse.py:148 mmse_equalize_split_pallas",
     work_symbol="mmse_equalize_split_work")
+
+
+def mmse_split_warp_smem(m: int, n: int, k: int) -> int:
+    """Shared memory of one lane of K3's warp form (``warp_lane_floats``
+    in ``csrc/mmse_equalize_split.cu``): the 2n x warp_pitch(2n)
+    embedding written over the staged planes (columns padded to a
+    multiple of 4), then the chain's scratch, each part rounded to 16
+    bytes."""
+    n2, n4 = 2 * n, -(-n // 4) * 4
+    region = -(-max(n2 * warp_pitch(n2), 2 * m * n4 + 2 * m * k) // 4) * 4
+    return 4 * (-(-(region + warp_scratch_floats(n2, k)) // 4) * 4)
+
+
+def mmse_split_warp_fits(m: int, n: int, k: int) -> bool:
+    """Whether K3's warp form takes a lane: 2n <= 64 rows, 1 <= k <= 8
+    right-hand sides, and the lane within a CTA's 227 KB."""
+    return (1 <= n and 2 * n <= WARP_MAX_ROWS and 1 <= k <= WARP_MAX_RHS
+            and warp_fits(mmse_split_warp_smem(m, n, k)))
+
+
+def mmse_split_plan(m: int, n: int, k: int, form: str | None = None) -> str:
+    """K3's form (:func:`~repro_torch.pipelines.warp_chain.warp_plan`):
+    ``"warp"`` where it fits (n <= 32, k <= 8), ``"cta"`` past it;
+    ``form`` asks for one.  (A lane past shared memory takes the global
+    form whatever the plan says.)"""
+    return warp_plan("mmse_split_plan", mmse_split_warp_fits(m, n, k), form,
+                     f"m = {m}, n = {n}, k = {k}: 2n <= {WARP_MAX_ROWS}, "
+                     f"k <= {WARP_MAX_RHS}")
 
 
 def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
@@ -137,36 +171,74 @@ def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
     return x
 
 
+def _split_shapes(name, hr, hi, yr, yi):
+    bsz, m, n = hr.shape
+    b2, m2, k = yr.shape
+    if not (hi.shape == hr.shape and yi.shape == yr.shape and m == m2
+            and bsz == b2 and m >= n):
+        raise ValueError(f"{name}: shapes {tuple(hr.shape)}, "
+                         f"{tuple(hi.shape)}, {tuple(yr.shape)}, "
+                         f"{tuple(yi.shape)}")
+    return bsz, m, n, k
+
+
 def mmse_equalize_split_fused(hr: torch.Tensor, hi: torch.Tensor,
                               yr: torch.Tensor, yi: torch.Tensor, *,
                               sigma2: float = 0.1,
-                              eps: float = DEFAULT_EPS) -> torch.Tensor:
+                              eps: float = DEFAULT_EPS,
+                              form: str | None = None) -> torch.Tensor:
     """Split re/im fused MMSE equalizer — the complex-native fast path.
 
     hr/hi: (B,M,N) channel planes, yr/yi: (B,M,K) observations ->
     x: (B,2N,K) stacked [Re x; Im x] (the real-expansion output layout,
     so both paths answer the same complex problem identically); float32,
-    contiguous.  K3 on a CUDA tensor (a lane past shared memory in a
-    device work buffer), its plain version on a CPU one."""
+    contiguous.  K3 on a CUDA tensor in ``form`` (default
+    :func:`mmse_split_plan`: a lane on a warp up to n = 32, on a CTA past
+    it; a lane past shared memory in a device work buffer), its plain
+    version on a CPU one.  Every form gives the same bits; a form the
+    lane cannot take raises ValueError on every device."""
     dev = check_f32("mmse_equalize_split", hr, hi, yr, yi)
-    bsz, m, n = hr.shape
-    b2, m2, k = yr.shape
-    if not (hi.shape == hr.shape and yi.shape == yr.shape and m == m2
-            and bsz == b2 and m >= n):
-        raise ValueError(f"mmse_equalize_split: shapes {tuple(hr.shape)}, "
-                         f"{tuple(hi.shape)}, {tuple(yr.shape)}, "
-                         f"{tuple(yi.shape)}")
+    bsz, m, n, k = _split_shapes("mmse_equalize_split", hr, hi, yr, yi)
+    form = mmse_split_plan(m, n, k, form)
     if dev.type == "cpu":
         return mmse_equalize_split_plain(hr, hi, yr, yi, sigma2=sigma2,
                                          eps=eps)
     x = torch.empty((bsz, 2 * n, k), dtype=torch.float32, device=dev)
     if bsz:
         work = _SPLIT_KERNEL.work_buffer(dev, bsz, m, n, k)
+        warp = work is None and form == "warp"
         _SPLIT_KERNEL.launch(dev, (m, n, k), hr.data_ptr(), hi.data_ptr(),
                              yr.data_ptr(), yi.data_ptr(), x.data_ptr(),
                              data_ptr(work), bsz, m, n, k, sigma2, eps,
-                             *global_plan_args(work, 2 * n, k), work=work)
+                             int(warp), *global_plan_args(work, 2 * n, k),
+                             work=work)
+        if warp:
+            _SPLIT_KERNEL.launches_warp += 1
     return x
+
+
+def mmse_equalize_split_phases(hr: torch.Tensor, hi: torch.Tensor,
+                               yr: torch.Tensor, yi: torch.Tensor, *,
+                               sigma2: float = 0.1,
+                               eps: float = DEFAULT_EPS):
+    """K3's warp form through its phase-stamped instance on a CUDA
+    tensor: returns (x, stamps), the stamps a (batch, 2 +
+    len(LANE_PHASES)) int64 tensor of each lane's first and last SM clock
+    (thread 0 of its warp) and the cycles of each phase, which add up to
+    last - first.  Not a launch of the kernel's counted entry."""
+    dev = check_f32("mmse_equalize_split", hr, hi, yr, yi)
+    bsz, m, n, k = _split_shapes("mmse_equalize_split", hr, hi, yr, yi)
+    mmse_split_plan(m, n, k, "warp")
+    if dev.type != "cuda":
+        raise ValueError("mmse_equalize_split: the phase stamps run on the "
+                         "card")
+    x = torch.empty((bsz, 2 * n, k), dtype=torch.float32, device=dev)
+    stamps = torch.zeros((bsz, 2 + len(LANE_PHASES)), dtype=torch.int64,
+                         device=dev)
+    launch_phases("mmse_equalize_split_phases_f32", dev,
+                  [hr, hi, yr, yi, x, stamps], [bsz, m, n, k],
+                  [sigma2, eps])
+    return x, stamps
 
 
 def mmse_equalize(h, y, *, sigma2: float = 0.1,

@@ -18,7 +18,8 @@ that are not already registered pipelines:
     H from pilots and immediately consumes it for the data-symbol
     equalization, H never leaving shared memory.  Serving this entry
     instead of the two separate stages is the DAG's "stage-chained"
-    mode.
+    mode.  Up to n = 32 a lane runs on one warp
+    (:func:`pusch_chain_plan`), past it on a CTA.
 
 ``pusch_fft``  (``csrc/fft.cu``, K7)
     Stage adapter over the FFT kernel: per lane, A antenna rows of NF
@@ -51,6 +52,10 @@ from repro_torch.kernels.svd import (SvdPlan, check_svd_shape, launch_svd,
 from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
                                                   cholesky_chain_plain)
 from repro_torch.pipelines.mmse import mmse_equalize_plain
+from repro_torch.pipelines.warp_chain import (LANE_PHASES, WARP_MAX_RHS,
+                                              launch_phases, warp_fits,
+                                              warp_pitch, warp_plan,
+                                              warp_scratch_floats)
 
 DEFAULT_RIDGE = 1e-3
 DEFAULT_LAM = 1e-3
@@ -135,10 +140,60 @@ _CHANEST = CudaKernel(
 
 _CHAIN = CudaKernel(
     "pusch_chain", "pusch_chain_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+    + [ctypes.c_int],
     "pusch_chain_smem", 4,
     source="src/repro_torch/csrc/pusch_chain.cu",
     replaces="src/repro/pipelines/pusch.py:135 pusch_chain_pallas")
+
+# K6's warp form: n <= 32 rows, a row a thread; the stage-1 products'
+# 4 x 4 tiles at most four a thread (kWarpSlots in csrc/pusch_chain.cu)
+PUSCH_WARP_MAX_N = 32
+PUSCH_WARP_SLOTS = 4
+PUSCH_PILOT_CHUNK = 32       # pilots staged at a time (kPilotChunk)
+
+
+def pusch_warp_units(n: int, m: int) -> int:
+    """The 4 x 4 tiles of K6's stage-1 products in its warp form: the
+    pilot Gram's lower tiles and Xp Yp^T's."""
+    t = -(-n // 4)
+    return t * (t + 1) // 2 + t * -(-m // 4)
+
+
+def pusch_warp_smem(n: int, p: int, m: int, k: int) -> int:
+    """Shared memory of one lane of K6's warp form (``WarpLane`` in
+    ``csrc/pusch_chain.cu``): the pilots and observations, 32 pilots at a
+    time at row pitch min(p, 32) | 1, overwritten by L (pitch
+    warp_pitch(n)) and Z (pitch warp_pitch(m)), then the symbols, the
+    chains' scratch and the first chain's rsqrts, each part rounded to 16
+    bytes."""
+    px, ldz = min(p, PUSCH_PILOT_CHUNK) | 1, warp_pitch(m)
+    region = -(-max((n + m) * px, n * warp_pitch(n) + n * ldz) // 4) * 4
+    return 4 * (-(-(region + -(-m * k // 4) * 4 + warp_scratch_floats(n, k)
+                    + n) // 4) * 4)
+
+
+def pusch_warp_fits(n: int, p: int, m: int, k: int) -> bool:
+    """Whether K6's warp form takes a lane: n <= 32, 1 <= k <= 8, its
+    stage-1 tiles within four a thread and the lane within a CTA's
+    227 KB."""
+    return (1 <= n <= PUSCH_WARP_MAX_N and 1 <= k <= WARP_MAX_RHS
+            and p >= 1 and m >= 1
+            and pusch_warp_units(n, m) <= 32 * PUSCH_WARP_SLOTS
+            and warp_fits(pusch_warp_smem(n, p, m, k)))
+
+
+def pusch_chain_plan(n: int, p: int, m: int, k: int,
+                     form: str | None = None) -> str:
+    """K6's form (:func:`~repro_torch.pipelines.warp_chain.warp_plan`):
+    ``"warp"`` where it fits (:func:`pusch_warp_fits`), ``"cta"`` past
+    it; ``form`` asks for one."""
+    return warp_plan("pusch_chain_plan", pusch_warp_fits(n, p, m, k), form,
+                     f"n = {n}, p = {p}, m = {m}, k = {k}: n <= "
+                     f"{PUSCH_WARP_MAX_N}, k <= {WARP_MAX_RHS}, "
+                     f"{pusch_warp_units(n, m)} tiles of at most "
+                     f"{32 * PUSCH_WARP_SLOTS}")
+
 
 _APPLY = CudaKernel(
     "svd_apply", "svd_apply_f32",
@@ -174,28 +229,61 @@ def channel_estimate_fused(xp: torch.Tensor, yp: torch.Tensor, *,
     return h
 
 
-def pusch_chain_fused(xp: torch.Tensor, yp: torch.Tensor, y: torch.Tensor,
-                      *, ridge: float = DEFAULT_RIDGE, sigma2: float = 0.1,
-                      eps: float = DEFAULT_EPS) -> torch.Tensor:
-    """Fused channel-estimate -> equalize.  xp: (B,N,P), yp: (B,M,P),
-    y: (B,M,K) -> x (B,N,K); float32, contiguous.  K6 on a CUDA tensor
-    (one launch, H never leaves the lane), its plain version on a CPU
-    one."""
-    dev = check_f32("pusch_chain", xp, yp, y)
+def _chain_shapes(xp, yp, y):
     bsz, n, p, m = _pilot_shapes("pusch_chain", xp, yp)
     b3, m2, k = y.shape
     if not (bsz == b3 and m == m2):
         raise ValueError(f"pusch_chain: shapes {tuple(xp.shape)}, "
                          f"{tuple(yp.shape)}, {tuple(y.shape)}")
+    return bsz, n, p, m, k
+
+
+def pusch_chain_fused(xp: torch.Tensor, yp: torch.Tensor, y: torch.Tensor,
+                      *, ridge: float = DEFAULT_RIDGE, sigma2: float = 0.1,
+                      eps: float = DEFAULT_EPS,
+                      form: str | None = None) -> torch.Tensor:
+    """Fused channel-estimate -> equalize.  xp: (B,N,P), yp: (B,M,P),
+    y: (B,M,K) -> x (B,N,K); float32, contiguous.  K6 on a CUDA tensor
+    (one launch, H never leaves the lane) in ``form`` (default
+    :func:`pusch_chain_plan`: a lane on a warp up to n = 32, on a CTA
+    past it), its plain version on a CPU one.  Every form gives the same
+    bits; a form the lane cannot take raises ValueError on every
+    device."""
+    dev = check_f32("pusch_chain", xp, yp, y)
+    bsz, n, p, m, k = _chain_shapes(xp, yp, y)
+    form = pusch_chain_plan(n, p, m, k, form)
     if dev.type == "cpu":
         return pusch_chain_plain(xp, yp, y, ridge=ridge, sigma2=sigma2,
                                  eps=eps)
     x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
     if bsz:
+        warp = form == "warp"
         _CHAIN.launch(dev, (n, p, m, k), xp.data_ptr(), yp.data_ptr(),
                       y.data_ptr(), x.data_ptr(), bsz, n, p, m, k, ridge,
-                      sigma2, eps)
+                      sigma2, eps, int(warp))
+        if warp:
+            _CHAIN.launches_warp += 1
     return x
+
+
+def pusch_chain_phases(xp: torch.Tensor, yp: torch.Tensor, y: torch.Tensor,
+                       *, ridge: float = DEFAULT_RIDGE, sigma2: float = 0.1,
+                       eps: float = DEFAULT_EPS):
+    """K6's warp form through its phase-stamped instance on a CUDA
+    tensor: returns (x, stamps), as
+    :func:`~repro_torch.pipelines.mmse.mmse_equalize_split_phases`.  Not a
+    launch of the kernel's counted entry."""
+    dev = check_f32("pusch_chain", xp, yp, y)
+    bsz, n, p, m, k = _chain_shapes(xp, yp, y)
+    pusch_chain_plan(n, p, m, k, "warp")
+    if dev.type != "cuda":
+        raise ValueError("pusch_chain: the phase stamps run on the card")
+    x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
+    stamps = torch.zeros((bsz, 2 + len(LANE_PHASES)), dtype=torch.int64,
+                         device=dev)
+    launch_phases("pusch_chain_phases_f32", dev, [xp, yp, y, x, stamps],
+                  [bsz, n, p, m, k], [ridge, sigma2, eps])
+    return x, stamps
 
 
 def pusch_fft_fused(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:

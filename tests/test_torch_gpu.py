@@ -20,7 +20,12 @@ counts; K7 equal to its plain version bit for bit at every size from 2
 to 16384 points (the warp route up to 1024, the wide route past it), at
 the PUSCH DAG's rows in the stacked layout and on non-finite inputs; K8
 under every plan bit for bit (zero, rank-2 and NaN lanes; a lane alone
-and in a batch; svd_factor and svd) and its phase stamps.
+and in a batch; svd_factor and svd) and its phase stamps; K3's and K6's
+warp forms (a lane on a warp, n <= 32) bit for bit their CTA forms at
+every slot-mix and DAG size and batch, odd sizes and every right-hand
+side instance, deficient, zero and NaN lanes, K3's global form still
+its warp form's bits, K5 untouched, the C entries' refusals and lane
+bytes, and the warp forms' phase stamps.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
@@ -28,7 +33,7 @@ there is no compute-capability 9.0 card.  On the card:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 (``-k flash`` for K20's cases alone, ``-k gemm`` for K18's, ``-k fft``
-for K7's.)
+for K7's, ``-k "warp or lane_phase"`` for K3's and K6's warp forms.)
 """
 import ctypes
 import importlib
@@ -1984,3 +1989,204 @@ def test_hybrid_and_xlstm_prefill_launch_counts(hopper, arch, k21, k20):
     want = tT.prefill(p, cfg, {"tokens": toks})
     assert_close(got.cpu().numpy(), want.numpy(), rtol=1e-3,
                  name=f"{arch} prefill card vs cpu")
+
+
+# ---------------- K3's and K6's warp forms (a lane on a warp) ----------
+
+tmmse = importlib.import_module("repro_torch.pipelines.mmse")
+tpusch = importlib.import_module("repro_torch.pipelines.pusch")
+LANE_PHASES = importlib.import_module(
+    "repro_torch.pipelines.warp_chain").LANE_PHASES
+WARP_SIZES = [8, 12, 16, 24, 32]           # the slot mixes' and DAGs' n
+WARP_BATCHES = [1, 4, 32, 3276]
+
+
+def _split_lanes(dev, b, n, k=2, seed=0):
+    """K3 lanes at m = n + 4 with, where the batch has them, a rank-
+    deficient lane (1: Hr's and Hi's column 1 a copy of column 0), a zero
+    channel (2, the guard of chip_smoke.py) and a NaN lane (3)."""
+    rng = np.random.default_rng(seed)
+    m = n + 4
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    hr, hi, yr, yi = f(b, m, n), f(b, m, n), f(b, m, k), f(b, m, k)
+    if b > 3 and n > 1:
+        hr[1, :, 1], hi[1, :, 1] = hr[1, :, 0], hi[1, :, 0]
+        hr[2], hi[2] = 0.0, 0.0
+        hr[3, 0, 0] = np.nan
+    return tuple(torch.from_numpy(a).to(dev) for a in (hr, hi, yr, yi))
+
+
+def _chain_lanes(dev, b, n, k=2, seed=0):
+    """K6 lanes at p = 2n, m = n + 4 with, where the batch has them, a
+    deficient pilot block (lane 1: pilot row 1 a copy of row 0), zero
+    observations (2) and a NaN lane (3)."""
+    rng = np.random.default_rng(seed)
+    m, p = n + 4, 2 * n
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    xp, yp, y = f(b, n, p), f(b, m, p), f(b, m, k)
+    if b > 3 and n > 1:
+        xp[1, 1] = xp[1, 0]
+        yp[2] = 0.0
+        xp[3, 0, 0] = np.nan
+    return tuple(torch.from_numpy(a).to(dev) for a in (xp, yp, y))
+
+
+def _warp_form_agrees(kernel, fused, args):
+    """The served (warp) form's answer bit for bit the CTA form's (the
+    kernel of earlier slices); the served launch counted as one warp
+    launch."""
+    k = next(k for k in KERNELS if k.name == kernel)
+    cta = fused(*args, form="cta")
+    before = (k.launches, k.launches_warp)
+    got = fused(*args)
+    torch.cuda.synchronize()
+    assert (k.launches - before[0], k.launches_warp - before[1]) == (1, 1)
+    assert torch.equal(_bits(got), _bits(cta))
+    return got
+
+
+@pytest.mark.parametrize("b", WARP_BATCHES)
+@pytest.mark.parametrize("n", WARP_SIZES)
+def test_split_warp_form_equals_cta_form_bit_for_bit(hopper, n, b):
+    """K3 a warp a lane against a CTA a lane at every slot-mix size and batch, deficient, zero and NaN lanes among
+    them bit for bit; the well-posed lanes within rtol of the plain
+    version (a deficient lane's answer hangs on rounding: it is held to
+    the CTA form's bits alone)."""
+    args = _split_lanes(hopper, b, n, seed=n * 10 + b)
+    m = n + 4
+    assert tmmse.mmse_split_plan(m, n, 2) == "warp"
+    got = _warp_form_agrees("mmse_equalize_split",
+                            tmmse.mmse_equalize_split_fused, args)
+    keep = [i for i in range(b) if i not in (1, 3) or b <= 3]
+    assert_close(got[keep].cpu().numpy(), tmmse.mmse_equalize_split_plain(
+        *args)[keep].cpu().numpy(), rtol=1e-4, name=f"K3 warp n={n}")
+    if b > 3:
+        assert bool(torch.isfinite(got[:3]).all())
+        assert bool((got[2].abs() < 1e-5).all())
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (3, 2), (13, 3), (17, 2),
+                                 (29, 8), (31, 4), (32, 1), (32, 8)])
+def test_split_warp_form_at_odd_sizes_and_right_hand_sides(hopper, n, k):
+    """K3's warp form at n off the tiles' multiple of 4, at 2n just past
+    32 rows and at every instance of its right-hand sides (1, 2, 4, 8):
+    the CTA form's bits."""
+    args = _split_lanes(hopper, 300, n, k=k, seed=n + 100 * k)
+    _warp_form_agrees("mmse_equalize_split",
+                      tmmse.mmse_equalize_split_fused, args)
+
+
+@pytest.mark.parametrize("b", WARP_BATCHES)
+@pytest.mark.parametrize("n", WARP_SIZES)
+def test_pusch_warp_form_equals_cta_form_bit_for_bit(hopper, n, b):
+    """K6 a warp a lane against a CTA a lane at every DAG size and batch,
+    deficient, zero and NaN lanes among them bit for bit; the well-posed
+    lanes within rtol of the plain version (a deficient lane's answer
+    hangs on rounding: it is held to the CTA form's bits alone)."""
+    args = _chain_lanes(hopper, b, n, seed=n * 10 + b)
+    m, p = n + 4, 2 * n
+    assert tpusch.pusch_chain_plan(n, p, m, 2) == "warp"
+    got = _warp_form_agrees("pusch_chain", tpusch.pusch_chain_fused, args)
+    keep = [i for i in range(b) if i not in (1, 3) or b <= 3]
+    assert_close(got[keep].cpu().numpy(), tpusch.pusch_chain_plain(
+        *args)[keep].cpu().numpy(), rtol=1e-4, name=f"K6 warp n={n}")
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 2), (13, 3), (20, 8),
+                                 (31, 4), (32, 1)])
+def test_pusch_warp_form_at_odd_sizes_and_right_hand_sides(hopper, n, k):
+    args = _chain_lanes(hopper, 300, n, k=k, seed=n + 100 * k)
+    _warp_form_agrees("pusch_chain", tpusch.pusch_chain_fused, args)
+
+
+def test_split_global_form_equals_the_warp_form_at_n_32(hopper,
+                                                        monkeypatch):
+    """Where the warp form runs, the global form (forced by a
+    shared-memory limit of 0) still gives its bits."""
+    args = _split_lanes(hopper, 64, 32, seed=3)
+    k = next(k for k in KERNELS if k.name == "mmse_equalize_split")
+    warp = tmmse.mmse_equalize_split_fused(*args)
+    before = (k.launches_global, k.launches_warp)
+    monkeypatch.setattr(common, "MAX_SMEM_BYTES", 0)
+    glob = tmmse.mmse_equalize_split_fused(*args)
+    torch.cuda.synchronize()
+    assert (k.launches_global, k.launches_warp) == (before[0] + 1,
+                                                    before[1])
+    assert torch.equal(_bits(glob), _bits(warp))
+
+
+def test_channel_estimate_is_untouched_by_the_warp_forms(hopper):
+    """K5 keeps its one-CTA kernel: at a carrier's width its lanes match
+    the plain version and each lane's answer is its own alone."""
+    xp, yp, _ = _chain_lanes(hopper, 3276, 32, seed=9)
+    got = tp.channel_estimate_fused(xp, yp)
+    alone = tp.channel_estimate_fused(xp[5:6].contiguous(),
+                                      yp[5:6].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[5:6]), _bits(alone))
+    keep = [i for i in range(3276) if i not in (1, 3)]
+    assert_close(got[keep].cpu().numpy(), tp.channel_estimate_plain(
+        xp, yp)[keep].cpu().numpy(), rtol=1e-4, name="K5 n=32")
+
+
+def test_warp_form_refused_off_its_plan_by_the_c_entry(hopper):
+    """The C entries refuse a warp launch past n = 32 or k = 8 (K6: also
+    past the stage-1 tiles four slots a thread hold)."""
+    args = _split_lanes(hopper, 4, 8)
+    x = torch.empty((4, 16, 2), device=hopper)
+    ptrs = [t.data_ptr() for t in args] + [x.data_ptr(), None]
+    for n, k in ((33, 2), (8, 9)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tmmse._SPLIT_KERNEL.launch(hopper, (12, 8, 2), *ptrs, 4, 12, n,
+                                       k, 0.1, 1e-5, 1, 0, 0, 0)
+    xp, yp, y = _chain_lanes(hopper, 4, 8)
+    out = torch.empty((4, 8, 2), device=hopper)
+    for n, m, k in ((33, 12, 2), (8, 12, 9), (32, 48, 2)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tpusch._CHAIN.launch(hopper, (8, 16, 12, 2), xp.data_ptr(),
+                                 yp.data_ptr(), y.data_ptr(), out.data_ptr(),
+                                 4, n, 16, m, k, 1e-3, 0.1, 1e-5, 1)
+
+
+def test_warp_lane_bytes_match_the_c_entries(hopper):
+    """The plans' lane bytes (mmse_split_warp_smem, pusch_warp_smem) are
+    the kernels' own (the C entries' *_warp_smem) at every n <= 32."""
+    lib = common.load_library()
+    for fn in (lib.mmse_equalize_split_warp_smem, lib.pusch_chain_warp_smem):
+        fn.restype = ctypes.c_size_t
+    for n in range(1, 33):
+        for m, k in ((n, 1), (n + 4, 2), (2 * n + 3, 8)):
+            assert lib.mmse_equalize_split_warp_smem(m, n, k) == \
+                tmmse.mmse_split_warp_smem(m, n, k)
+            for p in (n, 2 * n, 70):
+                assert lib.pusch_chain_warp_smem(n, p, m, k) == \
+                    tpusch.pusch_warp_smem(n, p, m, k)
+
+
+@pytest.mark.parametrize("kernel,n,b", [("mmse_equalize_split", 32, 300),
+                                        ("mmse_equalize_split", 8, 32),
+                                        ("pusch_chain", 32, 300),
+                                        ("pusch_chain", 24, 32)])
+def test_lane_phase_stamps_are_ordered_and_cover_the_kernel(hopper, kernel,
+                                                            n, b):
+    """The warp forms' phase-stamped instances give the served bits; each
+    lane's stamps are ordered and its phases add up to its time; K3
+    leaves K6's second chain's phases at 0."""
+    if kernel == "mmse_equalize_split":
+        args = _split_lanes(hopper, b, n, seed=4)
+        fused, stamped = (tmmse.mmse_equalize_split_fused,
+                          tmmse.mmse_equalize_split_phases)
+    else:
+        args = _chain_lanes(hopper, b, n, seed=4)
+        fused, stamped = tpusch.pusch_chain_fused, tpusch.pusch_chain_phases
+    before = _launches(kernel)
+    x, stamps = stamped(*args)
+    torch.cuda.synchronize()
+    assert _launches(kernel) == before
+    assert torch.equal(_bits(x), _bits(fused(*args)))
+    st = stamps.cpu()
+    assert st.shape == (b, 2 + len(LANE_PHASES))
+    assert bool((st[:, 1] > st[:, 0]).all() and (st[:, 2:] >= 0).all())
+    assert torch.equal(st[:, 2:].sum(dim=1), st[:, 1] - st[:, 0])
+    if kernel == "mmse_equalize_split":
+        assert not bool(st[:, 2 + 4:2 + 7].any())
