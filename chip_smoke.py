@@ -85,15 +85,20 @@ Phases, each fatal on failure:
                K16's warp form (a warp a lane, n <= 32, m <= 8) equal to
                its CTA form bit for bit at n = 1, 7, 8, 16, 31, 32 and m
                = 1, 2, 3, 8, both directions, NaN in the unread triangle
-               never leaking; K3's and K6's warp forms (a lane on a warp,
-               n <= 32) equal to their CTA forms (the one-CTA kernels of
-               earlier slices) bit for bit at the slot mixes' and DAGs'
-               sizes at B = 3276 and at the
-               served widths (K3 n = 8, 16, 32 on 32 lanes; K6 n = 8 on 4
+               never leaking; K2's, K3's, K5's and K6's warp forms (a
+               lane on a warp, n <= 32) equal to their CTA forms (the
+               one-CTA kernels of earlier slices) bit for bit at the slot
+               mixes' and DAGs' sizes at B = 3276 and at the
+               served widths (K2 n = 8, 12 on 8 lanes, 16, 24, 32 on 32,
+               8 on 4; K3 n = 8, 16, 32 on 32 lanes; K5 and K6 n = 8 on 4
                lanes, n = 24 on 32) with a deficient, a zero and a NaN
                lane, each call one launch of the form it names, and held
                to their plain versions and oracles at the served widths
-               too (and timed there);
+               too (and timed there); K2's wide form (a lane on a CTA of
+               its plan's W warps, 32 < n <= 168) equal to its CTA form
+               bit for bit at n = 33, 64, 97, 128 (on 32 and 300 lanes),
+               168, and on the mid-range mix's 32 lanes held to its plain
+               version and oracle within 1e-4;
                K19 at 61,440 outputs (one 0.5 ms slot of one antenna at
                122.88 Msps) with 31 and 65 taps; guard cases (NaN in the
                unread triangle of K15 and K16, m = n + 1 and m = 1 for
@@ -146,7 +151,8 @@ Phases, each fatal on failure:
                with 32 lanes over 8 ticks, and the committed PUSCH trace
                replayed to its golden file) and the mid-range slot mix
                (``main --sizes 128,256``, with and without the overload
-               policy: K10, K11 and the global forms of K2 and K3) and
+               policy: K10, K11, K2's wide form and the global forms of
+               K2 and K3) and
                the HBM-scale slot mix (``main --sizes 512 --slots 4
                --lanes 32``, with and without the policy: K12, K13, K14
                and the global form of K3); the DSP receiver chain
@@ -161,6 +167,10 @@ Phases, each fatal on failure:
                exactly K18 4, K20 1); the committed decode trace through
                the port's mux replayed to ``decode_golden.json`` and
                ``serve_solvers --decode`` (K2 serves the solver jobs);
+               K2's launches on each path split by form (warp, wide, CTA,
+               global), its warp form required on the TTI mix, the DAGs
+               and the decode golden, its wide form on the mid-range mix,
+               K5's warp form on the DAGs;
                the LM serving paths at full width (``lm_path``, run at
                the start of phase 5 so that they are timed there),
                phi4-mini-3.8b, zamba2-2.7b and xlstm-125m, each from its
@@ -184,7 +194,8 @@ Phases, each fatal on failure:
                call computes the same function, that call (K7's rows
                also print the share of 3.35 TB/s each reaches); the blocked
                kernels and the global forms at n = 128 and 256, K2's
-               shared form at n = 128, and the tiled kernels at n = 512
+               shared (wide) form at n = 128 at B = 3276 and on the
+               mid-range mix's 32 lanes, and the tiled kernels at n = 512
                (B = 3276) and 1024 (B = 264), the blocked kernels at n =
                128 and 256 and the tiled ones at n = 512 also at the 32
                lanes the slot mixes serve (K10-K14's rows with their
@@ -326,8 +337,8 @@ BASELINE_LAUNCHES = {"cholesky_solve": {"cholesky": 1, "trisolve": 2},
 DSP_LAUNCHES = {"cholesky": 1, "trisolve": 2, "fft": 1, "fir": 1, "svd": 1}
 # kernel -> its mid-range and HBM-scale timing rows: (n, m or None for
 # n + 4, the form a two-form kernel must run, lanes); K2 at n = 128 is
-# the shared form the mid-range mix runs beside its global form at n =
-# 256; K1 at n = 1024 is the demoted 1024 bucket's rung and K3 at n = 512
+# the shared (wide) form the mid-range mix runs on its 32 lanes beside
+# its global form at n = 256; K1 at n = 1024 is the demoted 1024 bucket's rung and K3 at n = 512
 # the HBM-scale mix's split-complex jobs, at B = 264 as TILED_CASES
 MID_TIMES = {"cholesky_solve": ((250, None, "global", LANES),
                                 (1024, None, "global", 264)),
@@ -336,6 +347,7 @@ MID_TIMES = {"cholesky_solve": ((250, None, "global", LANES),
                                         (128, None, None, LANES),
                                         (256, None, None, LANES)),
              "mmse_equalize": ((128, None, "shared", LANES),
+                               (128, None, "shared", SERVED_LANES),
                                (256, None, "global", LANES)),
              "mmse_equalize_split": ((128, None, "global", LANES),
                                      (256, None, "global", LANES),
@@ -363,12 +375,22 @@ PANEL_WIDTHS = (1, 8, 16, 32, 64)
 # 204 x 200 (ragged last panels), its lanes from a generator of their own
 QR_PANEL_SIZES = (128, 200)
 QR_PANEL_WIDTHS = (1, 8, 16, 32)
-# K3's and K6's warp forms: (n, lanes) of the served widths (the slot
-# mixes' 32 lanes; the DAGs' n = 8 on 4 lanes and n = 24 on 32), and the
-# cases held bit for bit to the CTA form (a carrier's width at every
-# slot-mix and DAG size, and the served widths)
-WARP_SERVED = {"mmse_equalize_split": ((8, 32), (16, 32), (32, 32)),
+# K2's, K3's, K5's and K6's warp forms: (n, lanes) of the served widths
+# (the slot mixes' 8 and 32 lanes; the DAGs' n = 8 on 4 lanes and n = 24
+# on 32), and the cases held bit for bit to the CTA form (a carrier's
+# width at every slot-mix and DAG size, and the served widths)
+WARP_SERVED = {"mmse_equalize": ((8, 8), (12, 8), (16, 32), (32, 32),
+                                 (8, 4), (24, 32)),
+               "mmse_equalize_split": ((8, 32), (16, 32), (32, 32)),
+               "channel_estimate": ((8, 4), (24, 32)),
                "pusch_chain": ((8, 4), (24, 32))}
+# K2's wide form (a lane on a CTA of its plan's W warps) against its CTA
+# form bit for bit: (n, lanes), m = n + 4, deficient,
+# zero and NaN lanes among them: the edges of the form (33, 168), the
+# mid-range mix's n = 128 on its 32 lanes and wider, and sizes off the
+# tiles' multiple of 4
+WIDE_BITS = ((33, 37), (64, 37), (97, 37), (128, 32), (128, 300),
+             (168, 37))
 WARP_BITS = tuple((n, LANES) for n in (8, 12, 16, 24, 32))
 # K16's warp form against its CTA form: (n, m) of every edge of the warp
 TRI_WARP_NS = (1, 7, 8, 16, 31, 32)
@@ -1142,14 +1164,22 @@ def main():
         return pp.chol_tiled_plan(lanes, n, k, bs, name,
                                   m if name == "mmse_equalize_tiled" else None)
 
-    def lane_form(name, shapes):
-        """The form of a K3 / K6 launch at per-lane ``shapes`` (K3: Hr,
-        Hi, yr, yi; K6: Xp, Yp, y)."""
-        if name == "mmse_equalize_split":
+    def lane_form(name, shapes, lanes):
+        """The form of a K2 / K3 / K5 / K6 launch of ``lanes`` lanes at
+        per-lane ``shapes`` (K2: H, y; K3: Hr, Hi, yr, yi; K5: Xp, Yp;
+        K6: Xp, Yp, y), and K2's wide form's warps."""
+        if name in ("mmse_equalize", "mmse_equalize_split"):
             (m, n), k = shapes[0], shapes[-1][-1]
-            return pp.mmse_split_plan(m, n, k)
+            if name == "mmse_equalize_split":
+                return [pp.mmse_split_plan(m, n, k)]
+            form = pp.mmse_form(m, n, k)
+            return [form] + ([pp.mmse_wide_plan(m, n, k)]
+                             if form == "wide" else [])
+        if name == "channel_estimate":
+            (n, p), (m, _) = shapes
+            return [pp.channel_estimate_plan(n, p, m)]
         (n, p), (m, _), (_, k) = shapes
-        return pp.pusch_chain_plan(n, p, m, k)
+        return [pp.pusch_chain_plan(n, p, m, k)]
 
     def cluster_plan(name, lanes, shapes):
         """The cluster plan of a K11 / K13 launch of ``lanes`` lanes at
@@ -2128,34 +2158,48 @@ def main():
               f"{'all' if not bad else 'not ' + str(bad)}", flush=True)
         if bad:
             failures.append(f"trisolve warp form != CTA form at {bad}")
-    # K3's and K6's warp forms against their CTA forms bit for bit (a
-    # deficient lane, a zero lane and a NaN lane among each batch's), each
-    # default call one launch of the warp form; at the served widths also
-    # against the plain version and the oracle
+    # K2's, K3's, K5's and K6's warp forms against their CTA forms bit for
+    # bit (a deficient lane, a zero lane and a NaN lane among each
+    # batch's), each default call one launch of the warp form; at the
+    # served widths also against the plain version and the oracle
     MM = importlib.import_module("repro_torch.pipelines.mmse")
     PU = importlib.import_module("repro_torch.pipelines.pusch")
     wgen = torch.Generator(device=dev)
     wgen.manual_seed(5)
+    # K2's and K5's served widths draw from a generator of their own, so
+    # that every other check keeps its inputs (rng's and gen's draws)
+    wrng = np.random.default_rng(5)
     bits = lambda t: t.reshape(-1).view(torch.int32)       # noqa: E731
+
+    def special_lanes(key, b, n, k=2):
+        """``key``'s lanes at m = n + 4, p = 2n (made on the card) with a
+        deficient lane (1), a zero lane (2) and a NaN lane (3)."""
+        m, p = n + 4, 2 * n
+        if key == "mmse_equalize_split":
+            args = [grand(b, m, n, g=wgen), grand(b, m, n, g=wgen),
+                    grand(b, m, k, g=wgen), grand(b, m, k, g=wgen)]
+            args[0][1, :, 1] = args[0][1, :, 0]
+            args[1][1, :, 1] = args[1][1, :, 0]
+            args[0][2], args[1][2] = 0.0, 0.0
+        elif key == "mmse_equalize":
+            args = [grand(b, m, n, g=wgen), grand(b, m, k, g=wgen)]
+            args[0][1, :, 1] = args[0][1, :, 0]
+            args[0][2] = 0.0
+        else:
+            args = [grand(b, n, p, g=wgen), grand(b, m, p, g=wgen)]
+            if key == "pusch_chain":
+                args.append(grand(b, m, k, g=wgen))
+            args[0][1, 1] = args[0][1, 0]
+            args[1][2] = 0.0
+        args[0][3, 0, 0] = float("nan")
+        return args
+
     for key in WARP_SERVED:
         k = kern[key]
+        fn = fused[key]
         bad = []
         for n, b in WARP_BITS + WARP_SERVED[key]:
-            m, p = n + 4, 2 * n
-            if key == "mmse_equalize_split":
-                args = [grand(b, m, n, g=wgen), grand(b, m, n, g=wgen),
-                        grand(b, m, 2, g=wgen), grand(b, m, 2, g=wgen)]
-                args[0][1, :, 1] = args[0][1, :, 0]
-                args[1][1, :, 1] = args[1][1, :, 0]
-                args[0][2], args[1][2] = 0.0, 0.0
-                fn = MM.mmse_equalize_split_fused
-            else:
-                args = [grand(b, n, p, g=wgen), grand(b, m, p, g=wgen),
-                        grand(b, m, 2, g=wgen)]
-                args[0][1, 1] = args[0][1, 0]
-                args[1][2] = 0.0
-                fn = PU.pusch_chain_fused
-            args[0][3, 0, 0] = float("nan")
+            args = special_lanes(key, max(b, 4), n)
             before = (k.launches, k.launches_warp)
             warp = fn(*args)
             cta = fn(*args, form="cta")
@@ -2172,7 +2216,34 @@ def main():
         if bad:
             failures.append(f"{key} warp form != CTA form at {bad}")
         for n, b in WARP_SERVED[key]:
-            check(key, slot_case(key, rng, b, n), f"served B={b} n={n}")
+            own = key in ("mmse_equalize", "channel_estimate")
+            check(key, slot_case(key, wrng if own else rng, b, n),
+                  f"served B={b} n={n}")
+    # K2's wide form against its CTA form bit for bit, each call one
+    # launch of the wide form; on the mid-range mix's 32 lanes also
+    # against the plain version and oracle, within 1e-4
+    k2 = kern["mmse_equalize"]
+    bad = []
+    for n, b in WIDE_BITS:
+        args = special_lanes("mmse_equalize", b, n)
+        cta = MM.mmse_equalize_fused(*args, form="cta")
+        before = (k2.launches, k2.launches_wide)
+        wide = MM.mmse_equalize_fused(*args)
+        torch.cuda.synchronize()
+        if not ((k2.launches - before[0], k2.launches_wide - before[1])
+                == (1, 1) and torch.equal(bits(wide), bits(cta))
+                and bool(torch.isfinite(wide[:3]).all())):
+            bad.append((n, b, MM.mmse_wide_plan(n + 4, n, 2)))
+        del args, cta, wide
+    print(f"  {'mmse_equalize':<22} wide form == CTA form bit for bit at "
+          f"(n, lanes) in {WIDE_BITS}, the plan's W, deficient, zero and "
+          f"NaN lanes: {'all' if not bad else 'not ' + str(bad)}",
+          flush=True)
+    if bad:
+        failures.append(f"mmse_equalize wide form != CTA form at {bad}")
+    check("mmse_equalize", mid_case("mmse_equalize", SERVED_LANES, 128,
+                                    g=wgen),
+          f"wide B={SERVED_LANES} n=128", rtol=1e-4)
     # guard cases: NaN in the triangle a kernel never reads
     a = torch.from_numpy(sample_spd(rng, 2, 16)).to(dev)
     clean = KC.cholesky_fused(a)
@@ -2422,6 +2493,8 @@ def main():
     launches_global = {name: 0 for name in kern}
     launches_tc = {name: 0 for name in kern}
     launches_warp = {name: 0 for name in kern}
+    launches_wide = {name: 0 for name in kern}
+    k2_forms = {}                     # path -> K2's launches by form
 
     def reset_launches():
         for k in common.KERNELS:
@@ -2429,13 +2502,17 @@ def main():
             k.launches_global = 0
             k.launches_tc = 0
             k.launches_warp = 0
+            k.launches_wide = 0
 
     def read_launches(path: str, expect: tuple, expect_global=(),
-                      exact: dict | None = None, expect_warp=()):
+                      exact: dict | None = None, expect_warp=(),
+                      expect_wide=()):
         """Print and add up the launches since the last reset; fail if a
         kernel in ``expect`` (a global form in ``expect_global``, a warp
-        form in ``expect_warp``) never launched or, given ``exact``, if
-        the launched kernels and their counts are not exactly those."""
+        form in ``expect_warp``, K2's wide form in ``expect_wide``) never
+        launched or, given ``exact``, if the launched kernels and their
+        counts are not exactly those.  K2's launches are split by form
+        (warp, wide, CTA, global)."""
         counts = {k.name: k.launches for k in common.KERNELS}
         glob = {k.name: k.launches_global for k in common.KERNELS
                 if k.launches_global}
@@ -2443,16 +2520,27 @@ def main():
               if k.launches_tc}
         warp = {k.name: k.launches_warp for k in common.KERNELS
                 if k.launches_warp}
+        wide = {k.name: k.launches_wide for k in common.KERNELS
+                if k.launches_wide}
+        k2 = kern["mmse_equalize"]
+        k2_forms[path] = {
+            "warp": k2.launches_warp, "wide": k2.launches_wide,
+            "cta": (k2.launches - k2.launches_warp - k2.launches_wide
+                    - k2.launches_global),
+            "global": k2.launches_global}
         print(f"main-path launches ({path}): {json.dumps(counts)}; "
               f"of them in the global form: {json.dumps(glob)}, in a "
               f"tensor-core form: {json.dumps(tc)}, in a warp form: "
-              f"{json.dumps(warp)}", flush=True)
+              f"{json.dumps(warp)}, in K2's wide form: {json.dumps(wide)};"
+              f" K2 by form: {json.dumps(k2_forms[path])}", flush=True)
         if not all(counts[name] for name in expect):
             fail(f"a kernel of the {path} path never launched: {counts}")
         if not all(glob.get(name) for name in expect_global):
             fail(f"a global form of the {path} path never ran: {glob}")
         if not all(warp.get(name) for name in expect_warp):
             fail(f"a warp form of the {path} path never ran: {warp}")
+        if not all(wide.get(name) for name in expect_wide):
+            fail(f"a wide form of the {path} path never ran: {wide}")
         if exact is not None and {n: c for n, c in counts.items() if c} \
                 != exact:
             fail(f"the {path} path launched {counts}, not exactly {exact}")
@@ -2461,6 +2549,7 @@ def main():
             launches_global[name] += glob.get(name, 0)
             launches_tc[name] += tc.get(name, 0)
             launches_warp[name] += warp.get(name, 0)
+            launches_wide[name] += wide.get(name, 0)
 
     reset_launches()
     for argv in (["--slots", "8", "--lanes", "8", "--sizes", "8,12",
@@ -2485,7 +2574,7 @@ def main():
         fail("overload trace replay differs from overload_golden.json")
     read_launches("TTI slot mix", ("cholesky_solve", "mmse_equalize",
                                    "mmse_equalize_split", "qr_solve"),
-                  expect_warp=("mmse_equalize_split",))
+                  expect_warp=("mmse_equalize", "mmse_equalize_split"))
 
     reset_launches()
     fault_trace = str(ROOT / "tests" / "data" / "pusch_fault_trace.json")
@@ -2517,7 +2606,9 @@ def main():
                  f"|out - oracle| {err:.3e}")
     read_launches("served DAGs", ("mmse_equalize", "channel_estimate",
                                   "pusch_chain", "fft", "svd",
-                                  "svd_apply"), expect_warp=("pusch_chain",))
+                                  "svd_apply"),
+                  expect_warp=("mmse_equalize", "channel_estimate",
+                               "pusch_chain"))
 
     reset_launches()
     for argv in (["--slots", "8", "--lanes", "32", "--sizes", "128,256"],
@@ -2533,7 +2624,8 @@ def main():
     read_launches("mid-range slot mix",
                   ("cholesky_solve_blocked", "qr_solve_blocked",
                    "mmse_equalize", "mmse_equalize_split"),
-                  ("mmse_equalize", "mmse_equalize_split"))
+                  ("mmse_equalize", "mmse_equalize_split"),
+                  expect_wide=("mmse_equalize",))
 
     reset_launches()
     for argv in (["--slots", "4", "--lanes", "32", "--sizes", "512"],
@@ -2627,7 +2719,8 @@ def main():
     print("serve_solvers --decode", flush=True)
     out = S_.main(["--decode"])
     print(f"  summary {json.dumps(out)}", flush=True)
-    read_launches("decode golden + --decode", ("mmse_equalize",))
+    read_launches("decode golden + --decode", ("mmse_equalize",),
+                  expect_warp=("mmse_equalize",))
 
     # ---------------- 5. times ----------------
     flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -2922,7 +3015,7 @@ def main():
                                                min(kw["chunk"],
                                                    shapes[0][2])))
                          if name == "ssm_scan"
-                         else [lane_form(name, shapes)]
+                         else lane_form(name, shapes, lanes)
                          if name in WARP_SERVED else None)})
             print(f"  time {name:<22} {label:<12} kernel {ms:.4f} ms "
                   f"(median of {reps}, slowest {ms_max:.4f})  plain "
@@ -2946,7 +3039,7 @@ def main():
                      if name == "svd" else
                      f"  plan (clusters, tiles, slots, smem) "
                      f"{sweep[-1]['plan']}" if name == "ssm_scan" else
-                     f"  form {sweep[-1]['plan'][0]}" if name in WARP_SERVED
+                     f"  form {sweep[-1]['plan']}" if name in WARP_SERVED
                      and form != "global" else
                      f"  plan (threads, bs, "
                      f"{'tile, ' if name == 'qr_solve' else ''}smem) "
@@ -2964,6 +3057,9 @@ def main():
             "launches_global": launches_global[name],
             "launches_tc": launches_tc[name],
             "launches_warp": launches_warp[name],
+            "launches_wide": launches_wide[name],
+            "launches_by_form": (k2_forms if name == "mmse_equalize"
+                                 else None),
             "max_abs_err": max_err[name],
             "rtol": RTOLS.get(name, RTOL),
             "lanes": head["lanes"], "shapes": head["shapes"],

@@ -1,28 +1,29 @@
 #!/usr/bin/env python3
-"""Time the n <= 32 MMSE solves of the slot mixes and the PUSCH DAG -- K3
-(the split equalizer), K6 (the fused PUSCH chain) and K5 (the channel
-estimate, the unchanged witness) -- of one or two source trees of the
-port on one card, in turns, and hold their answers to each other bit for
-bit.
+"""Time the MMSE solves of the slot mixes and the PUSCH DAG -- K2 (the
+MMSE equalizer), K3 (the split equalizer), K5 (the channel estimate) and
+K6 (the fused PUSCH chain) -- of one or two source trees of the port on
+one card, in turns, and hold their answers to each other bit for bit.
 
     python3 scripts/pusch_ab.py --tree new=src [--tree old=OTHER/src] \\
         [--order BAAB] [--reps 10]
 
 Each turn (``ab_turns.py``) is a fresh process that imports
 ``repro_torch`` from its tree and builds its kernels there.  At each of
-``CASES`` (K3 at a carrier's 3276 lanes and at the slot mixes' 32 served
-lanes, n = 8, 16, 32; K6 at 3276 lanes and n = 32, and at the DAG's n = 8
-on 4 lanes and n = 24 on 32; K5 at 3276 lanes and n = 32; m = n + 4
-antennas, p = 2n pilots, k = 2 symbols), with inputs made on the card
-from a seeded generator (the same in every turn), it reads the kernel's
-device ms (CUDA events, L2 flushed, median of ``--reps``) and keeps its
-answer (``build/pusch_ab/<tree>.pt``).  A tree whose K3 and K6 take a
-``form`` also runs the CTA form at each case, records whether it gives
-the served form's answer (``torch.equal``) and times it (``cta_ms``).
-Each turn prints one JSON line; the last line is a JSON summary: each
-tree's ms in turn order and, with two trees, whether every turn's
-answers are ``torch.equal`` to the other tree's at every case.  It exits
-1 if any answer or form differs.
+``CASES`` (K2 at a carrier's 3276 lanes at n = 32 and 128, at the slot
+mixes' and the decode trace's served widths and at the mid-range mix's
+n = 128 on 32 lanes; K3 at 3276 lanes and at the slot mixes' 32 served
+lanes, n = 8, 16, 32; K5 and K6 at 3276 lanes and n = 32, and at the
+DAG's n = 8 on 4 lanes and n = 24 on 32; m = n + 4 antennas, p = 2n
+pilots, k = 2 symbols), with inputs made on the card from a seeded
+generator (the same in every turn), it reads the kernel's device ms
+(CUDA events, L2 flushed, median of ``--reps``) and keeps its answer
+(``build/pusch_ab/<tree>.pt``).  A tree whose kernel takes a ``form``
+also runs the CTA form at each case, records whether it gives the served
+form's answer (``torch.equal``) and times it (``cta_ms``).  Each turn
+prints one JSON line; the last line is a JSON summary: each tree's ms in
+turn order and, with two trees, whether every turn's answers are
+``torch.equal`` to the other tree's at every case.  It exits 1 if any
+answer or form differs.
 """
 import argparse
 import json
@@ -33,11 +34,17 @@ import ab_turns as AB  # the turns and the timing helpers
 import chip_smoke as CS  # the card line and clocks
 
 # (kernel, n, lanes): m = n + 4, p = 2n, k = 2
-CASES = (("mmse_equalize_split", 8, 3276), ("mmse_equalize_split", 16, 3276),
+CASES = (("mmse_equalize", 32, 3276), ("mmse_equalize", 8, 8),
+         ("mmse_equalize", 12, 8), ("mmse_equalize", 16, 32),
+         ("mmse_equalize", 32, 32), ("mmse_equalize", 8, 4),
+         ("mmse_equalize", 24, 32), ("mmse_equalize", 128, 32),
+         ("mmse_equalize", 128, 3276),
+         ("mmse_equalize_split", 8, 3276), ("mmse_equalize_split", 16, 3276),
          ("mmse_equalize_split", 32, 3276), ("mmse_equalize_split", 8, 32),
          ("mmse_equalize_split", 16, 32), ("mmse_equalize_split", 32, 32),
          ("pusch_chain", 32, 3276), ("pusch_chain", 8, 4),
-         ("pusch_chain", 24, 32), ("channel_estimate", 32, 3276))
+         ("pusch_chain", 24, 32), ("channel_estimate", 32, 3276),
+         ("channel_estimate", 8, 4), ("channel_estimate", 24, 32))
 OUT = AB.ROOT / "build" / "pusch_ab"
 
 
@@ -50,6 +57,8 @@ def make_case(torch, dev, kernel: str, n: int, lanes: int, seed: int = 0):
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
     if kernel == "mmse_equalize_split":
         return r(lanes, m, n), r(lanes, m, n), r(lanes, m, 2), r(lanes, m, 2)
+    if kernel == "mmse_equalize":
+        return r(lanes, m, n), r(lanes, m, 2)
     if kernel == "pusch_chain":
         return r(lanes, n, p), r(lanes, m, p), r(lanes, m, 2)
     return r(lanes, n, p), r(lanes, m, p)
@@ -57,7 +66,14 @@ def make_case(torch, dev, kernel: str, n: int, lanes: int, seed: int = 0):
 
 def form_of(mod, kernel: str, args):
     """The form a tree picks for ``kernel`` at ``args`` (None for a tree
-    without forms, and for K5)."""
+    without forms of it)."""
+    if kernel == "mmse_equalize" and hasattr(mod, "mmse_form"):
+        _, m, n = args[0].shape
+        return mod.mmse_form(m, n, args[1].shape[-1])
+    if kernel == "channel_estimate" and hasattr(mod,
+                                                "channel_estimate_plan"):
+        _, n, p = args[0].shape
+        return mod.channel_estimate_plan(n, p, args[1].shape[1])
     if kernel == "mmse_equalize_split" and hasattr(mod, "mmse_split_plan"):
         _, m, n = args[0].shape
         return mod.mmse_split_plan(m, n, args[2].shape[-1])
@@ -76,7 +92,8 @@ def one_turn(name: str, tree: Path, reps: int) -> dict:
     AB.import_tree(tree)
     from repro_torch.kernels import common
     pp = {k: importlib.import_module(f"repro_torch.pipelines.{mod}")
-          for k, mod in (("mmse_equalize_split", "mmse"),
+          for k, mod in (("mmse_equalize", "mmse"),
+                         ("mmse_equalize_split", "mmse"),
                          ("pusch_chain", "pusch"),
                          ("channel_estimate", "pusch"))}
     dev = torch.device("cuda")

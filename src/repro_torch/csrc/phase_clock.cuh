@@ -1,7 +1,7 @@
 // Phase stamps of the large-n Householder solves (K11, K13), of the
 // Cholesky solves on the tiled core (K10, K12, K14), of the Jacobi SVD
-// (K8), of the chunked SSD scan (K21) and of the n <= 32 MMSE solves (K3,
-// K6).
+// (K8), of the chunked SSD scan (K21) and of the MMSE solves on a warp or
+// a wide CTA (K2, K3, K5, K6).
 //
 // An instance compiled with kOn = true reads clock64() on thread 0 of the
 // lane's first CTA at each phase edge, each edge right after a barrier
@@ -63,11 +63,12 @@ enum ScanPhase { kSpLoad, kSpScan, kSpM, kSpMx, kSpState, kSpWait, kSpChain,
                  kSpCh, kSpX, kScanPhases };
 constexpr int kScanStampWords = 2 + kScanPhases;
 
-// The split MMSE equalizer (K3) and the PUSCH chain (K6), a lane on a
-// warp: the load; the Gram and matched filter (K6: the pilot Gram and
-// cross product); the factor with its forward substitution; the back
-// substitution; for K6's second chain its Gram of H and matched filter,
-// factor and back substitution; the store.
+// The MMSE equalizers (K2, K3), the channel estimate (K5) and the PUSCH
+// chain (K6), a lane on a warp (K2: or on a wide CTA): the load; the Gram
+// and matched filter (K5, K6: the pilot Gram and cross product); the
+// factor with its forward substitution; the back substitution; for K6's
+// second chain its Gram of H and matched filter, factor and back
+// substitution; the store.
 enum LanePhase { kLpLoad, kLpGram, kLpFactor, kLpBack, kLpGram2, kLpFactor2,
                  kLpBack2, kLpStore, kLanePhases };
 constexpr int kLaneStampWords = 2 + kLanePhases;

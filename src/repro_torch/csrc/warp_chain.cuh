@@ -1,5 +1,6 @@
-// The fused Cholesky chain of one lane on one warp: K3's and K6's warp
-// forms (n <= 32; K3's 2n x 2n real embedding takes two rows a thread).
+// The fused Cholesky chain of one lane on one warp: K2's, K3's, K5's and
+// K6's warp forms (n <= 32; K3's 2n x 2n real embedding takes two rows a
+// thread).
 //
 // The lane's system lives in its CTA's shared memory, row-major
 // at a pitch 4 modulo 8 (warp_pitch), so that the threads, which each own
@@ -23,6 +24,10 @@
 // one rounded product wherever it is taken), the same contractions and
 // the same division by l[k][k] in back substitution.  So a warp form
 // gives the CTA form's bits.
+//
+// warp_equalize is K2's lane on the warp (K2's warp form, and K6's second
+// stage on the H its first stage made): the Gram's lower tiles and the
+// matched filter, then the chain with the symbols in registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -395,6 +400,29 @@ __device__ __forceinline__ void row_tile(const float* x, int ldx, int i0,
   }
 }
 
+// A 4 x 4 tile of column products, acc[q * 4 + w] += x[t * ldx + i0 + q] *
+// y[t * ldy + j0 + w] for t = 0, 1, ... < len in order, a 16-byte slice of
+// row t of each (ldx, ldy, i0 and j0 multiples of 4, the slices within
+// the rows' padding): the sums of the CTA forms' Gram loops over a
+// row-major H, one FFMA each.
+__device__ __forceinline__ void col_tile(const float* x, int ldx, int i0,
+                                         const float* y, int ldy, int j0,
+                                         int len, float (&acc)[16]) {
+  const float* xr = x + i0;
+  const float* yr = y + j0;
+#pragma unroll 2
+  for (int t = 0; t < len; ++t) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + t * ldx);
+    const float4 yv = *reinterpret_cast<const float4*>(yr + t * ldy);
+    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+    const float ys[4] = {yv.x, yv.y, yv.z, yv.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) acc[q * 4 + w] += xs[q] * ys[w];
+  }
+}
+
 // Copies rows x len floats of device memory (row pitch spitch, len by
 // default) into the warp's shared memory at row `pitch` by cp.async, every
 // copy of a thread in flight at once; stage_wait() ends them for the warp.
@@ -422,6 +450,72 @@ __device__ __forceinline__ void tri_tile(int u, int& i, int& j) {
   i = 0;
   while ((i + 1) * (i + 2) / 2 <= u) ++i;
   j = u - i * (i + 1) / 2;
+}
+
+// K2's chain on the warp, from H (m x n) in shared memory: the lower 4 x 4
+// tiles of G = H^T H + sigma2 I (at most two a thread) written into a
+// (n x pitch), the matched filter of thread t's row, H^T y, into y, then
+// the guarded factor with the forward substitution and the back
+// substitution, the k <= kK symbols in registers; on return y[0][c] is
+// row t of x.  H is read as it arrives, row-major (kHt = false: h is m x n
+// at ldh, each Gram tile a 16-byte slice of a row, col_tile), or as its
+// transpose Z = H^T (kHt = true: h is n x m at ldh, row_tile; K6's first
+// stage leaves Z so).  yv: the m x k symbols at row pitch k.  Every sum
+// runs over r = 0 .. m-1 in order, one FFMA each, as the CTA form's.  The
+// clock marks phase0 (the Gram and filter), phase0 + 1 (the factor) and
+// phase0 + 2 (the back substitution).
+template <int kK, bool kHt, class Clock>
+__device__ __forceinline__ void warp_equalize(const float* h, int ldh,
+                                              const float* yv, float* a,
+                                              int pitch, float* scratch,
+                                              int n, int m, int k,
+                                              float sigma2, float eps,
+                                              float (&y)[1][kK], Clock& clk,
+                                              int phase0) {
+  const int t = threadIdx.x & 31;
+  const int tiles = (n + 3) / 4;
+  const int units = tiles * (tiles + 1) / 2;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int u = t + 32 * s;
+    if (u >= units) continue;
+    int i0, j0;
+    tri_tile(u, i0, j0);
+    float acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
+    if (kHt)
+      row_tile(h, ldh, 4 * i0, n, h, ldh, 4 * j0, n, m, acc);
+    else
+      col_tile(h, ldh, 4 * i0, h, ldh, 4 * j0, m, acc);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int i = 4 * i0 + q;
+        const int j = 4 * j0 + v;
+        if (i < n && j <= i) {
+          const float g = acc[q * 4 + v];
+          a[i * pitch + j] = (i == j) ? g + sigma2 : g;
+        }
+      }
+  }
+#pragma unroll
+  for (int c = 0; c < kK; ++c) {
+    y[0][c] = 0.0f;
+    if (t >= n || c >= k) continue;
+    float s = 0.0f;
+    for (int r = 0; r < m; ++r)
+      s += (kHt ? h[t * ldh + r] : h[r * ldh + t]) * yv[r * k + c];
+    y[0][c] = s;
+  }
+  __syncwarp();
+  clk.mark(phase0);
+  warp_factor<1, kK>(a, pitch, n, warp_threshold<1>(a, pitch, n, eps),
+                     scratch, nullptr, y, k);
+  clk.mark(phase0 + 1);
+  warp_back<1, kK>(a, pitch, n, scratch, y, k);
+  clk.mark(phase0 + 2);
 }
 
 // A warp form's kernel attributes, set once an instance: the shared

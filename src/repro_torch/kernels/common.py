@@ -230,7 +230,8 @@ class CudaKernel:
     ``launches_global`` counts those of them that ran the global form,
     ``launches_tc`` those that the C entry reports in a tensor-core form
     (K18's and K20's wrappers count it), ``launches_warp`` those in a
-    warp form (K16's, K3's and K6's wrappers count it).  ``source`` and ``replaces``
+    warp form (K2's, K3's, K5's, K6's and K16's wrappers count it),
+    ``launches_wide`` those in K2's wide form.  ``source`` and ``replaces``
     name the CUDA source and the TPU kernel it ports."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
@@ -248,6 +249,7 @@ class CudaKernel:
         self.launches_global = 0
         self.launches_tc = 0
         self.launches_warp = 0
+        self.launches_wide = 0
         self._fn = None
         self._smem_fn = None
         self._work_fn = None

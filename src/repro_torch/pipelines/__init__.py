@@ -49,12 +49,12 @@ from repro_torch.pipelines.mmse import (  # noqa: F401
     mmse_equalize_composed,
     mmse_equalize_fused, mmse_equalize_plain, mmse_equalize_split,
     mmse_equalize_split_fused, mmse_equalize_split_plain,
-    mmse_split_plan,
+    mmse_form, mmse_split_plan, mmse_wide_plan,
     mmse_equalize_tiled, mmse_equalize_tiled_fused,
     mmse_equalize_tiled_plain, mmse_tiled_vmem_floats)
 from repro_torch.pipelines.pusch import (  # noqa: F401
     channel_estimate, channel_estimate_fused, channel_estimate_plain,
-    pusch_chain, pusch_chain_fused, pusch_chain_plain, pusch_chain_plan,
+    channel_estimate_plan, pusch_chain, pusch_chain_fused, pusch_chain_plain, pusch_chain_plan,
     pusch_fft,
     pusch_fft_fused, pusch_fft_plain, svd_apply, svd_apply_fused,
     svd_apply_plain, svd_factor, svd_factor_fused, svd_factor_plain,
@@ -71,7 +71,8 @@ __all__ = [
     "chol_panel_plan",
     "mmse_equalize", "mmse_equalize_fused", "mmse_equalize_plain",
     "mmse_equalize_split", "mmse_equalize_split_fused",
-    "mmse_equalize_split_plain", "mmse_split_plan",
+    "mmse_equalize_split_plain", "mmse_split_plan", "mmse_form",
+    "mmse_wide_plan",
     "expand_complex_channel",
     "qr_solve", "qr_solve_fused", "qr_solve_plain", "qr_panel_plan",
     "QrClusterPlan", "qr_cluster_plan", "qr_cluster_forms",
@@ -90,6 +91,7 @@ __all__ = [
     "mmse_equalize_blocked",
     "cholesky_solve_unfused", "qr_solve_unfused", "mmse_equalize_composed",
     "channel_estimate", "channel_estimate_fused", "channel_estimate_plain",
+    "channel_estimate_plan",
     "pusch_chain", "pusch_chain_fused", "pusch_chain_plain",
     "pusch_fft", "pusch_fft_fused", "pusch_fft_plain",
     "svd_factor", "svd_factor_fused", "svd_factor_plain",

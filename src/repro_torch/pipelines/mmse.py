@@ -11,9 +11,12 @@ received symbols y (m x k):
 
 which is the real-valued LMMSE estimate x = (H^H H + s I)^{-1} H^H y.
 Nothing leaves shared memory between the four stages
-(``csrc/mmse_equalize.cu``, K2); a lane too large for shared memory
-keeps G in a device work buffer, reads H and y in place and factors G
-by panels (:func:`~repro_torch.pipelines.cholesky_solve.chol_panel_plan`).
+(``csrc/mmse_equalize.cu``, K2).  Up to n = 32 a lane runs on one warp,
+past it on a CTA of W warps with its triangle in registers (the wide
+form, :func:`mmse_form`, :func:`mmse_wide_plan`); a lane too large for
+shared memory keeps G in a device work buffer, reads H and y in place
+and factors G by panels
+(:func:`~repro_torch.pipelines.cholesky_solve.chol_panel_plan`).
 
 Complex channels are handled two ways:
 
@@ -40,6 +43,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.common import (CudaKernel, check_f32, data_ptr,
                                         resolve_device)
 from repro_torch.pipelines.cholesky_solve import (DEFAULT_EPS,
@@ -103,7 +107,7 @@ def mmse_equalize_split_plain(hr: torch.Tensor, hi: torch.Tensor,
 _KERNEL = CudaKernel(
     "mmse_equalize", "mmse_equalize_f32",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-    + [ctypes.c_int] * 3,
+    + [ctypes.c_int] * 4,
     "mmse_equalize_smem", 3,
     source="src/repro_torch/csrc/mmse_equalize.cu",
     replaces="src/repro/pipelines/mmse.py:78 mmse_equalize_pallas",
@@ -117,6 +121,96 @@ _SPLIT_KERNEL = CudaKernel(
     source="src/repro_torch/csrc/mmse_equalize_split.cu",
     replaces="src/repro/pipelines/mmse.py:148 mmse_equalize_split_pallas",
     work_symbol="mmse_equalize_split_work")
+
+
+# K2's forms in shared memory (csrc/mmse_equalize.cu): a lane on one warp
+# up to n = 32 and k = 8; past it a CTA of W warps holding the Gram's
+# lower 4 x 4 tiles and y's in registers, one a thread, its back
+# substitution a row a thread up to 6 x 32 rows; a 128-thread CTA past
+# those.
+MMSE_FORMS = ("warp", "wide", "cta")
+WIDE_MAX_N = 192
+WIDE_WARPS = (2, 4, 8, 16, 32)
+
+
+def mmse_cta_smem(m: int, n: int, k: int) -> int:
+    """Shared memory of one lane of K2's CTA form (``smem_bytes``): H, y,
+    G, the right-hand sides and the chain's scratch."""
+    return 4 * (m * n + m * k + n * n + n * k + n + k + 1)
+
+
+def mmse_warp_smem(m: int, n: int, k: int) -> int:
+    """Shared memory of one lane of K2's warp form (``warp_lane_floats``):
+    H at row pitch warp_pitch(n), the symbols, the system at the same
+    pitch and the chain's scratch, each part rounded to 16 bytes."""
+    up = lambda x: -(-x // 4) * 4                                # noqa: E731
+    pitch = warp_pitch(n)
+    return 4 * (m * pitch + up(m * k) + n * pitch
+                + up(warp_scratch_floats(n, k)))
+
+
+def mmse_warp_fits(m: int, n: int, k: int) -> bool:
+    """Whether K2's warp form takes a lane: n <= 32, 1 <= k <= 8 and the
+    lane within a CTA's 227 KB."""
+    return (1 <= n <= 32 and 1 <= k <= WARP_MAX_RHS and m >= n
+            and warp_fits(mmse_warp_smem(m, n, k)))
+
+
+def mmse_wide_units(n: int, k: int) -> int:
+    """The 4 x 4 register tiles of K2's wide form: the Gram's lower
+    triangle and y's (``wide_units``)."""
+    t = -(-n // 4)
+    return t * (t + 1) // 2 + t * -(-k // 4)
+
+
+def mmse_wide_smem(m: int, n: int, k: int, warps: int) -> int:
+    """Shared memory of one lane of the wide form (``WideLane``): H at row
+    pitch n4, y at k4, two raw columns, two raw solution rows and each
+    warp's diagonal max (n4, k4: n, k rounded up to 4)."""
+    n4, k4 = -(-n // 4) * 4, -(-k // 4) * 4
+    return 4 * (m * n4 + m * k4 + 2 * n4 + 2 * k4 + 2 * warps)
+
+
+def mmse_wide_plan(m: int, n: int, k: int) -> int:
+    """The warps W of K2's wide form: the fewest of :data:`WIDE_WARPS`
+    whose threads hold the lane's tiles one a thread (32 at n = 128, k =
+    2, on 32 lanes and at B = 3276 alike), its shared memory within a
+    CTA's 227 KB; 0 where none does.  (``scripts/lane_phases.py --forms``
+    times the wide form at every W that holds the tiles.)"""
+    if not (1 <= n <= WIDE_MAX_N and k >= 1 and m >= n):
+        return 0
+    return next((w for w in WIDE_WARPS if 32 * w >= mmse_wide_units(n, k)
+                 and mmse_wide_smem(m, n, k, w) <= common.MAX_SMEM_BYTES),
+                0)
+
+
+def mmse_wide_fits(m: int, n: int, k: int) -> bool:
+    """Whether K2's wide form takes a lane: its tiles fit a CTA one a
+    thread (:func:`mmse_wide_plan`), and the lane's CTA form fits shared
+    memory (past it the lane takes the global form, as before)."""
+    return (bool(mmse_wide_plan(m, n, k))
+            and mmse_cta_smem(m, n, k) <= common.MAX_SMEM_BYTES)
+
+
+def mmse_form(m: int, n: int, k: int, form: str | None = None) -> str:
+    """K2's form of a lane in shared memory: ``"warp"`` where it fits
+    (:func:`mmse_warp_fits`), else ``"wide"`` where it fits
+    (:func:`mmse_wide_fits`), else ``"cta"``.  ``form`` asks for one; a
+    form off :data:`MMSE_FORMS`, or one past its limits, raises ValueError
+    (on every device).  (A lane past shared memory takes the global form
+    whatever the form says.)"""
+    if form not in (None,) + MMSE_FORMS:
+        raise ValueError(f"mmse_form: form {form!r}, not one of "
+                         f"{MMSE_FORMS}")
+    warp, wide = mmse_warp_fits(m, n, k), mmse_wide_fits(m, n, k)
+    if form == "warp" and not warp:
+        raise ValueError(f"mmse_form: no warp form (m = {m}, n = {n}, k = "
+                         f"{k}: n <= 32, k <= {WARP_MAX_RHS})")
+    if form == "wide" and not wide:
+        raise ValueError(f"mmse_form: no wide form (m = {m}, n = {n}, k = "
+                         f"{k}: {mmse_wide_units(n, k)} tiles, n <= "
+                         f"{WIDE_MAX_N}, the CTA form in shared memory)")
+    return form or ("warp" if warp else "wide" if wide else "cta")
 
 
 def mmse_split_warp_smem(m: int, n: int, k: int) -> int:
@@ -147,28 +241,72 @@ def mmse_split_plan(m: int, n: int, k: int, form: str | None = None) -> str:
                      f"k <= {WARP_MAX_RHS}")
 
 
-def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
-                        sigma2: float = 0.1,
-                        eps: float = DEFAULT_EPS) -> torch.Tensor:
-    """h: (B,M,N) per-subcarrier channels, y: (B,M,K) observations
-    -> x: (B,N,K) equalized symbols; float32, contiguous.  K2 on a CUDA
-    tensor (one launch for the whole chain; a lane past shared memory in
-    a device work buffer), its plain version on a CPU one."""
-    dev = check_f32("mmse_equalize", h, y)
+def _mmse_shapes(h, y):
     bsz, m, n = h.shape
     b2, m2, k = y.shape
     if not (m == m2 and bsz == b2 and m >= n):
         raise ValueError(f"mmse_equalize: shapes {tuple(h.shape)}, "
                          f"{tuple(y.shape)}")
+    return bsz, m, n, k
+
+
+def mmse_equalize_fused(h: torch.Tensor, y: torch.Tensor, *,
+                        sigma2: float = 0.1, eps: float = DEFAULT_EPS,
+                        form: str | None = None) -> torch.Tensor:
+    """h: (B,M,N) per-subcarrier channels, y: (B,M,K) observations
+    -> x: (B,N,K) equalized symbols; float32, contiguous.  K2 on a CUDA
+    tensor (one launch for the whole chain) in ``form`` (default
+    :func:`mmse_form`: a lane on a warp up to n = 32, on a CTA of
+    :func:`mmse_wide_plan`'s warps past it; a lane past shared memory in
+    a device work buffer), its plain version on a CPU one.  Every form
+    gives the same bits; a form the lane cannot take raises ValueError on
+    every device."""
+    dev = check_f32("mmse_equalize", h, y)
+    bsz, m, n, k = _mmse_shapes(h, y)
+    form = mmse_form(m, n, k, form)
     if dev.type == "cpu":
         return mmse_equalize_plain(h, y, sigma2=sigma2, eps=eps)
     x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
     if bsz:
         work = _KERNEL.work_buffer(dev, bsz, m, n, k)
+        if work is not None:
+            form = "global"
+            plan = global_plan_args(work, n, k)
+        else:
+            wide = form == "wide"
+            plan = (32 * mmse_wide_plan(m, n, k) if wide else 0, 0, 0)
         _KERNEL.launch(dev, (m, n, k), h.data_ptr(), y.data_ptr(),
                        x.data_ptr(), data_ptr(work), bsz, m, n, k, sigma2,
-                       eps, *global_plan_args(work, n, k), work=work)
+                       eps, *plan, {"warp": 1, "wide": 2}.get(form, 0),
+                       work=work)
+        if form == "warp":
+            _KERNEL.launches_warp += 1
+        elif form == "wide":
+            _KERNEL.launches_wide += 1
     return x
+
+
+def mmse_equalize_phases(h: torch.Tensor, y: torch.Tensor, *,
+                         sigma2: float = 0.1, eps: float = DEFAULT_EPS):
+    """K2's warp or wide form (:func:`mmse_form`'s) through its
+    phase-stamped instance on a CUDA tensor: returns (x, stamps), as
+    :func:`mmse_equalize_split_phases`.  Not a launch of the kernel's
+    counted entry."""
+    dev = check_f32("mmse_equalize", h, y)
+    bsz, m, n, k = _mmse_shapes(h, y)
+    form = mmse_form(m, n, k)
+    if form == "cta":
+        raise ValueError("mmse_equalize: the CTA form has no phase stamps")
+    if dev.type != "cuda":
+        raise ValueError("mmse_equalize: the phase stamps run on the card")
+    x = torch.empty((bsz, n, k), dtype=torch.float32, device=dev)
+    stamps = torch.zeros((bsz, 2 + len(LANE_PHASES)), dtype=torch.int64,
+                         device=dev)
+    threads = 32 * mmse_wide_plan(m, n, k) if form == "wide" else 32
+    launch_phases("mmse_equalize_phases_f32", dev, [h, y, x, stamps],
+                  [bsz, m, n, k, {"warp": 1, "wide": 2}[form], threads],
+                  [sigma2, eps])
+    return x, stamps
 
 
 def _split_shapes(name, hr, hi, yr, yi):

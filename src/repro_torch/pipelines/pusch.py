@@ -11,7 +11,9 @@ that are not already registered pipelines:
     Regularized least-squares channel estimation from pilots: given the
     known pilot block Xp (N, P) and its received observation Yp (M, P),
     solve (Xp Xp^T + ridge I) Z = Xp Yp^T and return H = Z^T (M, N) — a
-    Gram product and K1's fused Cholesky chain per lane.
+    Gram product and K1's fused Cholesky chain per lane.  Up to n = 32 a
+    lane runs on one warp (:func:`channel_estimate_plan`, K6's first
+    stage), past it on a CTA.
 
 ``pusch_chain``  (``csrc/pusch_chain.cu``, K6)
     Channel estimate -> MMSE equalize in one launch: the lane estimates
@@ -133,7 +135,8 @@ def svd_apply_plain(f: torch.Tensor, b: torch.Tensor, *,
 
 _CHANEST = CudaKernel(
     "channel_estimate", "channel_estimate_f32",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2,
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+    + [ctypes.c_int],
     "channel_estimate_smem", 3,
     source="src/repro_torch/csrc/pusch_chain.cu",
     replaces="src/repro/pipelines/pusch.py:92 channel_estimate_pallas")
@@ -195,6 +198,26 @@ def pusch_chain_plan(n: int, p: int, m: int, k: int,
                      f"{32 * PUSCH_WARP_SLOTS}")
 
 
+def chanest_warp_fits(n: int, p: int, m: int) -> bool:
+    """Whether K5's warp form (K6's first stage) takes a lane: n <= 32,
+    its tiles within four a thread and the lane (K6's at k = 0) within a
+    CTA's 227 KB."""
+    return (1 <= n <= PUSCH_WARP_MAX_N and p >= 1 and m >= 1
+            and pusch_warp_units(n, m) <= 32 * PUSCH_WARP_SLOTS
+            and warp_fits(pusch_warp_smem(n, p, m, 0)))
+
+
+def channel_estimate_plan(n: int, p: int, m: int,
+                          form: str | None = None) -> str:
+    """K5's form (:func:`~repro_torch.pipelines.warp_chain.warp_plan`):
+    ``"warp"`` where it fits (:func:`chanest_warp_fits`), ``"cta"`` past
+    it; ``form`` asks for one."""
+    return warp_plan("channel_estimate_plan", chanest_warp_fits(n, p, m),
+                     form, f"n = {n}, p = {p}, m = {m}: n <= "
+                     f"{PUSCH_WARP_MAX_N}, {pusch_warp_units(n, m)} tiles "
+                     f"of at most {32 * PUSCH_WARP_SLOTS}")
+
+
 _APPLY = CudaKernel(
     "svd_apply", "svd_apply_f32",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float],
@@ -214,19 +237,48 @@ def _pilot_shapes(name: str, xp: torch.Tensor, yp: torch.Tensor):
 
 def channel_estimate_fused(xp: torch.Tensor, yp: torch.Tensor, *,
                            ridge: float = DEFAULT_RIDGE,
-                           eps: float = DEFAULT_EPS) -> torch.Tensor:
+                           eps: float = DEFAULT_EPS,
+                           form: str | None = None) -> torch.Tensor:
     """LS channel estimate.  xp: (B,N,P) known pilots, yp: (B,M,P)
     received pilots -> H (B,M,N); float32, contiguous.  K5 on a CUDA
-    tensor, its plain version on a CPU one."""
+    tensor in ``form`` (default :func:`channel_estimate_plan`: a lane on a
+    warp up to n = 32, on a CTA past it), its plain version on a CPU one.
+    Every form gives the same bits; a form the lane cannot take raises
+    ValueError on every device."""
     dev = check_f32("channel_estimate", xp, yp)
     bsz, n, p, m = _pilot_shapes("channel_estimate", xp, yp)
+    form = channel_estimate_plan(n, p, m, form)
     if dev.type == "cpu":
         return channel_estimate_plain(xp, yp, ridge=ridge, eps=eps)
     h = torch.empty((bsz, m, n), dtype=torch.float32, device=dev)
     if bsz:
+        warp = form == "warp"
         _CHANEST.launch(dev, (n, p, m), xp.data_ptr(), yp.data_ptr(),
-                        h.data_ptr(), bsz, n, p, m, ridge, eps)
+                        h.data_ptr(), bsz, n, p, m, ridge, eps, int(warp))
+        if warp:
+            _CHANEST.launches_warp += 1
     return h
+
+
+def channel_estimate_phases(xp: torch.Tensor, yp: torch.Tensor, *,
+                            ridge: float = DEFAULT_RIDGE,
+                            eps: float = DEFAULT_EPS):
+    """K5's warp form through its phase-stamped instance on a CUDA
+    tensor: returns (h, stamps), as
+    :func:`~repro_torch.pipelines.mmse.mmse_equalize_split_phases`.  Not
+    a launch of the kernel's counted entry."""
+    dev = check_f32("channel_estimate", xp, yp)
+    bsz, n, p, m = _pilot_shapes("channel_estimate", xp, yp)
+    channel_estimate_plan(n, p, m, "warp")
+    if dev.type != "cuda":
+        raise ValueError("channel_estimate: the phase stamps run on the "
+                         "card")
+    h = torch.empty((bsz, m, n), dtype=torch.float32, device=dev)
+    stamps = torch.zeros((bsz, 2 + len(LANE_PHASES)), dtype=torch.int64,
+                         device=dev)
+    launch_phases("channel_estimate_phases_f32", dev, [xp, yp, h, stamps],
+                  [bsz, n, p, m], [ridge, eps])
+    return h, stamps
 
 
 def _chain_shapes(xp, yp, y):

@@ -1,10 +1,11 @@
-"""The warp forms of K3 and K6 (``csrc/warp_chain.cuh``): a lane on one
-warp, a CTA of 32 threads, with no block barrier.
+"""The warp forms of K2, K3, K5 and K6 (``csrc/warp_chain.cuh``): a lane
+on one warp, a CTA of 32 threads, with no block barrier.
 
 Their plan is a form: ``"warp"`` where the lane fits the warp chain (up
 to 64 rows, 8 right-hand sides held in registers, a CTA's 227 KB of
-shared memory), ``"cta"`` (a lane on a 128-thread CTA) past it.  Both
-give the same bits.  A CTA holds one lane: more lanes a CTA gained
+shared memory), ``"cta"`` (a lane on a 128-thread CTA) past it (K2 has a
+third, its wide form, ``pipelines/mmse.py`` ``mmse_form``).  Every form
+gives the same bits.  A CTA holds one lane: more lanes a CTA gained
 nothing on an H100 (PERF.md §6).
 """
 from __future__ import annotations
@@ -20,12 +21,13 @@ WARP_MAX_RHS = 8             # right-hand sides held in registers
 FORMS = ("warp", "cta")
 LANE_PHASES = ("load", "gram", "factor", "back", "gram2", "factor2",
                "back2", "store")
-"""The phases a stamped K3 or K6 lane is split into (``LanePhase`` in
-``csrc/phase_clock.cuh``): the load; the Gram and matched filter (K6:
-the pilot Gram and cross product); the factor with its forward
-substitution; the back substitution; K6's second chain (its Gram of H and
-matched filter, factor, back substitution); the store.  K3 leaves the
-second chain's phases at 0."""
+"""The phases a stamped K2, K3, K5 or K6 lane is split into (``LanePhase``
+in ``csrc/phase_clock.cuh``): the load; the Gram and matched filter (K5,
+K6: the pilot Gram and cross product); the factor with its forward
+substitution (K2's wide form: with L and y written out); the back
+substitution; K6's second chain (its Gram of H and matched filter,
+factor, back substitution); the store.  K2, K3 and K5 leave the second
+chain's phases at 0."""
 
 
 def warp_pitch(rows: int) -> int:
@@ -46,7 +48,7 @@ def warp_fits(lane_bytes: int) -> bool:
 
 
 def warp_plan(name: str, fits: bool, form: str | None, limits: str) -> str:
-    """The form of a K3 or K6 lane in shared memory: ``"warp"`` where the
+    """The form of a K3, K5 or K6 lane in shared memory: ``"warp"`` where the
     warp form ``fits``, ``"cta"`` past it.  ``form`` asks for one; a form
     off :data:`FORMS`, or ``"warp"`` past the form's ``limits``, raises
     ValueError (on every device)."""

@@ -24,8 +24,12 @@ and in a batch; svd_factor and svd) and its phase stamps; K3's and K6's
 warp forms (a lane on a warp, n <= 32) bit for bit their CTA forms at
 every slot-mix and DAG size and batch, odd sizes and every right-hand
 side instance, deficient, zero and NaN lanes, K3's global form still
-its warp form's bits, K5 untouched, the C entries' refusals and lane
-bytes, and the warp forms' phase stamps.
+its warp form's bits, the C entries' refusals and lane bytes, and the
+warp forms' phase stamps; K2's and K5's warp forms and K2's wide form (a
+lane on a CTA of W warps, 32 < n <= 168) bit for bit their CTA forms at
+every edge shape, W and right-hand-side instance, deficient, zero and
+NaN lanes, within rtol of their plain versions, their refusals, lane
+bytes and phase stamps.
 
 Marked ``gpu``; every test takes the ``hopper`` fixture, which skips when
 there is no compute-capability 9.0 card.  On the card:
@@ -33,7 +37,8 @@ there is no compute-capability 9.0 card.  On the card:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 (``-k flash`` for K20's cases alone, ``-k gemm`` for K18's, ``-k fft``
-for K7's, ``-k "warp or lane_phase"`` for K3's and K6's warp forms.)
+for K7's, ``-k "warp or wide or lane_phase"`` for the warp forms of K2,
+K3, K5 and K6 and K2's wide form.)
 """
 import ctypes
 import importlib
@@ -2116,12 +2121,13 @@ def test_split_global_form_equals_the_warp_form_at_n_32(hopper,
 
 
 def test_channel_estimate_is_untouched_by_the_warp_forms(hopper):
-    """K5 keeps its one-CTA kernel: at a carrier's width its lanes match
-    the plain version and each lane's answer is its own alone."""
+    """K5 at a carrier's width, in its warp form: its lanes match the
+    plain version and each lane's answer is its own alone, the CTA
+    form's bits."""
     xp, yp, _ = _chain_lanes(hopper, 3276, 32, seed=9)
     got = tp.channel_estimate_fused(xp, yp)
     alone = tp.channel_estimate_fused(xp[5:6].contiguous(),
-                                      yp[5:6].contiguous())
+                                      yp[5:6].contiguous(), form="cta")
     torch.cuda.synchronize()
     assert torch.equal(_bits(got[5:6]), _bits(alone))
     keep = [i for i in range(3276) if i not in (1, 3)]
@@ -2166,19 +2172,33 @@ def test_warp_lane_bytes_match_the_c_entries(hopper):
 @pytest.mark.parametrize("kernel,n,b", [("mmse_equalize_split", 32, 300),
                                         ("mmse_equalize_split", 8, 32),
                                         ("pusch_chain", 32, 300),
-                                        ("pusch_chain", 24, 32)])
+                                        ("pusch_chain", 24, 32),
+                                        ("mmse_equalize", 32, 300),
+                                        ("mmse_equalize", 8, 4),
+                                        ("mmse_equalize", 128, 32),
+                                        ("mmse_equalize", 64, 300),
+                                        ("channel_estimate", 32, 300),
+                                        ("channel_estimate", 8, 4)])
 def test_lane_phase_stamps_are_ordered_and_cover_the_kernel(hopper, kernel,
                                                             n, b):
-    """The warp forms' phase-stamped instances give the served bits; each
-    lane's stamps are ordered and its phases add up to its time; K3
-    leaves K6's second chain's phases at 0."""
+    """The warp forms' (and K2's wide form's) phase-stamped instances give
+    the served bits; each lane's stamps are ordered and its phases add up
+    to its time; K2, K3 and K5 leave K6's second chain's phases at 0."""
     if kernel == "mmse_equalize_split":
         args = _split_lanes(hopper, b, n, seed=4)
         fused, stamped = (tmmse.mmse_equalize_split_fused,
                           tmmse.mmse_equalize_split_phases)
-    else:
+    elif kernel == "pusch_chain":
         args = _chain_lanes(hopper, b, n, seed=4)
         fused, stamped = tpusch.pusch_chain_fused, tpusch.pusch_chain_phases
+    elif kernel == "mmse_equalize":
+        args = _mmse_lanes(hopper, b, n, seed=4)
+        fused, stamped = (tmmse.mmse_equalize_fused,
+                          tmmse.mmse_equalize_phases)
+    else:
+        args = _chain_lanes(hopper, b, n, seed=4)[:2]
+        fused, stamped = (tpusch.channel_estimate_fused,
+                          tpusch.channel_estimate_phases)
     before = _launches(kernel)
     x, stamps = stamped(*args)
     torch.cuda.synchronize()
@@ -2188,5 +2208,168 @@ def test_lane_phase_stamps_are_ordered_and_cover_the_kernel(hopper, kernel,
     assert st.shape == (b, 2 + len(LANE_PHASES))
     assert bool((st[:, 1] > st[:, 0]).all() and (st[:, 2:] >= 0).all())
     assert torch.equal(st[:, 2:].sum(dim=1), st[:, 1] - st[:, 0])
-    if kernel == "mmse_equalize_split":
+    if kernel != "pusch_chain":
         assert not bool(st[:, 2 + 4:2 + 7].any())
+
+
+# ---------------- K2's and K5's warp forms, K2's wide form ----------
+
+def _mmse_lanes(dev, b, n, k=2, seed=0):
+    """K2 lanes at m = n + 4 with, where the batch has them, a rank-
+    deficient channel (lane 1: column 1 a copy of column 0), a zero
+    channel (2, the guard of chip_smoke.py) and a NaN lane (3)."""
+    rng = np.random.default_rng(seed)
+    m = n + 4
+    h = rng.standard_normal((b, m, n)).astype(np.float32)
+    y = rng.standard_normal((b, m, k)).astype(np.float32)
+    if b > 3 and n > 1:
+        h[1, :, 1] = h[1, :, 0]
+        h[2] = 0.0
+        h[3, 0, 0] = np.nan
+    return torch.from_numpy(h).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _mmse_form_agrees(args, form=None):
+    """K2 in ``form`` (default its plan's) bit for bit its CTA form, the
+    launch counted once, in that form's count."""
+    k = next(k for k in KERNELS if k.name == "mmse_equalize")
+    _, m, n = args[0].shape
+    want = form or tmmse.mmse_form(m, n, args[1].shape[-1])
+    cta = tmmse.mmse_equalize_fused(*args, form="cta")
+    before = (k.launches, k.launches_warp, k.launches_wide)
+    got = tmmse.mmse_equalize_fused(*args, form=form)
+    torch.cuda.synchronize()
+    assert (k.launches - before[0], k.launches_warp - before[1],
+            k.launches_wide - before[2]) == (1, int(want == "warp"),
+                                             int(want == "wide"))
+    assert torch.equal(_bits(got), _bits(cta))
+    return got
+
+
+def _well_posed(b):
+    return [i for i in range(b) if i not in (1, 3) or b <= 3]
+
+
+@pytest.mark.parametrize("b", [1, 37, 300])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 12, 13, 16, 17, 24, 29, 31,
+                               32])
+def test_mmse_warp_form_equals_cta_form_bit_for_bit(hopper, n, k, b):
+    """K2 a warp a lane against a CTA a lane at every edge of the warp (n
+    = 1-32, every right-hand-side instance 1, 2, 4, 8), deficient, zero
+    and NaN lanes among them bit for bit; the well-posed lanes within
+    1e-4 of the plain version."""
+    args = _mmse_lanes(hopper, b, n, k=k, seed=n * 100 + k * 10 + b)
+    assert tmmse.mmse_form(n + 4, n, k) == "warp"
+    got = _mmse_form_agrees(args)
+    keep = _well_posed(b)
+    assert_close(got[keep].cpu().numpy(), tmmse.mmse_equalize_plain(
+        *args)[keep].cpu().numpy(), rtol=1e-4, name=f"K2 warp n={n} k={k}")
+    if b > 3:
+        assert bool(torch.isfinite(got[:3]).all())
+
+
+@pytest.mark.parametrize("n", [33, 64, 97, 128, 168])
+def test_mmse_wide_form_equals_cta_form_bit_for_bit(hopper, n):
+    """K2 on a CTA of its plan's W warps against a CTA a lane (37 lanes
+    with deficient, zero and NaN ones, then 32 and 300 lanes), bit for
+    bit; the well-posed lanes within 1e-4 of the plain version."""
+    m = n + 4
+    assert tmmse.mmse_form(m, n, 2) == "wide"
+    assert tmmse.mmse_wide_plan(m, n, 2)
+    args = _mmse_lanes(hopper, 37, n, seed=n)
+    got = _mmse_form_agrees(args, "wide")
+    keep = _well_posed(37)
+    assert_close(got[keep].cpu().numpy(), tmmse.mmse_equalize_plain(
+        *args)[keep].cpu().numpy(), rtol=1e-4, name=f"K2 wide n={n}")
+    assert bool(torch.isfinite(got[:3]).all())
+    assert bool((got[2].abs() < 1e-5).all())
+    for b in (32, 300):
+        _mmse_form_agrees(_mmse_lanes(hopper, b, n, seed=n + b))
+
+
+@pytest.mark.parametrize("n,k", [(33, 1), (40, 3), (64, 8), (97, 5),
+                                 (128, 1), (128, 9)])
+def test_mmse_wide_form_at_odd_right_hand_sides(hopper, n, k):
+    """The wide form's tiles of y (k off a multiple of 4; k = 9, three
+    tiles a row): the CTA form's bits."""
+    args = _mmse_lanes(hopper, 37, n, k=k, seed=n + 100 * k)
+    _mmse_form_agrees(args, "wide")
+
+
+@pytest.mark.parametrize("b", [1, 37, 300])
+@pytest.mark.parametrize("n,p", [(1, 2), (3, 6), (5, 7), (8, 16), (13, 26),
+                                 (16, 33), (17, 40), (24, 48), (31, 62),
+                                 (32, 64), (32, 65), (32, 100)])
+def test_chanest_warp_form_equals_cta_form_bit_for_bit(hopper, n, p, b):
+    """K5 a warp a lane against a CTA a lane at every edge of the warp and
+    at pilot counts across the 32-pilot chunks, deficient, zero and NaN
+    lanes among them bit for bit, each default call one warp launch; the
+    well-posed lanes within 1e-4 of the plain version."""
+    rng = np.random.default_rng(n * 1000 + p * 10 + b)
+    m = n + 4
+    xp = rng.standard_normal((b, n, p)).astype(np.float32)
+    yp = rng.standard_normal((b, m, p)).astype(np.float32)
+    if b > 3 and n > 1:
+        xp[1, 1] = xp[1, 0]
+        yp[2] = 0.0
+        xp[3, 0, 0] = np.nan
+    xp, yp = torch.from_numpy(xp).to(hopper), torch.from_numpy(yp).to(hopper)
+    assert tpusch.channel_estimate_plan(n, p, m) == "warp"
+    k = next(k for k in KERNELS if k.name == "channel_estimate")
+    cta = tpusch.channel_estimate_fused(xp, yp, form="cta")
+    before = (k.launches, k.launches_warp)
+    got = tpusch.channel_estimate_fused(xp, yp)
+    torch.cuda.synchronize()
+    assert (k.launches - before[0], k.launches_warp - before[1]) == (1, 1)
+    assert torch.equal(_bits(got), _bits(cta))
+    keep = _well_posed(b)
+    assert_close(got[keep].cpu().numpy(), tpusch.channel_estimate_plain(
+        xp, yp)[keep].cpu().numpy(), rtol=1e-4, name=f"K5 warp n={n}")
+
+
+def test_mmse_and_chanest_forms_refused_off_their_plans_by_the_c_entry(
+        hopper):
+    """The C entries refuse K2's warp form past n = 32 or k = 8, its wide
+    form on a thread count off a warp multiple, under its tiles one a
+    thread or past 1024, a form number they do not know, and K5's warp
+    form past n = 32 or its tiles four a thread."""
+    h, y = _mmse_lanes(hopper, 4, 64)
+    x = torch.empty((4, 64, 2), device=hopper)
+    ptrs = [h.data_ptr(), y.data_ptr(), x.data_ptr(), None]
+    for n, k, form, threads in ((33, 2, 1, 0), (8, 9, 1, 0), (64, 2, 2, 48),
+                                (128, 2, 2, 64), (64, 2, 2, 2048),
+                                (64, 2, 3, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tmmse._KERNEL.launch(hopper, (68, 64, 2), *ptrs, 4, n + 4, n, k,
+                                 0.1, 1e-5, threads, 0, 0, form)
+    xp, yp, _ = _chain_lanes(hopper, 4, 8)
+    out = torch.empty((4, 12, 8), device=hopper)
+    for n, m in ((33, 12), (32, 48)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tpusch._CHANEST.launch(hopper, (8, 16, 12), xp.data_ptr(),
+                                   yp.data_ptr(), out.data_ptr(), 4, n, 16,
+                                   m, 1e-3, 1e-5, 1)
+
+
+def test_mmse_and_chanest_lane_bytes_match_the_c_entries(hopper):
+    """The plans' lane bytes (mmse_cta_smem, mmse_warp_smem,
+    mmse_wide_smem, K5's pusch_warp_smem at k = 0) are the kernels' own
+    (the C entries' *_smem)."""
+    lib = common.load_library()
+    for fn in (lib.mmse_equalize_smem, lib.mmse_equalize_warp_smem,
+               lib.mmse_equalize_wide_smem, lib.channel_estimate_warp_smem):
+        fn.restype = ctypes.c_size_t
+    for n in (1, 7, 8, 31, 32, 33, 64, 97, 128, 168):
+        for m, k in ((n, 1), (n + 4, 2), (2 * n + 3, 8)):
+            assert lib.mmse_equalize_smem(m, n, k) == \
+                tmmse.mmse_cta_smem(m, n, k)
+            if n <= 32:
+                assert lib.mmse_equalize_warp_smem(m, n, k) == \
+                    tmmse.mmse_warp_smem(m, n, k)
+                for p in (n, 2 * n, 70):
+                    assert lib.channel_estimate_warp_smem(n, p, m) == \
+                        tpusch.pusch_warp_smem(n, p, m, 0)
+            for w in (2, 8, 32):
+                assert lib.mmse_equalize_wide_smem(m, n, k, w) == \
+                    tmmse.mmse_wide_smem(m, n, k, w)

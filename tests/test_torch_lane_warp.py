@@ -1,5 +1,5 @@
-"""K3's and K6's warp forms on the CPU: their plans, and the warp chain's
-schedule (``csrc/warp_chain.cuh``) emulated in torch.
+"""The warp forms of K2, K3, K5 and K6 on the CPU: their plans, and the
+warp chain's schedule (``csrc/warp_chain.cuh``) emulated in torch.
 
 A warp form runs a lane on one warp, a CTA of 32 threads, a thread owning
 whole rows (row t, and past 32 rows row rows - 1 - t), the factor's steps
@@ -43,36 +43,52 @@ def _chain_dims(n):
 
 @pytest.mark.parametrize("n", range(1, 97))
 def test_split_plan_form_by_n(n):
+    """K3 (and K2, on the same slot-mix lane: a warp up to n = 32, its
+    wide form past it)."""
     m, _, k = _split_dims(n)
     assert M.mmse_split_plan(m, n, k) == ("warp" if n <= 32 else "cta")
     assert M.mmse_split_plan(m, n, k, form="cta") == "cta"
+    assert M.mmse_form(m, n, k) == ("warp" if n <= 32 else "wide")
+    assert M.mmse_form(m, n, k, form="cta") == "cta"
 
 
 @pytest.mark.parametrize("n", range(1, 41))
 def test_pusch_plan_form_by_n(n):
+    """K6 (and K5, its first stage, on the same DAG lane)."""
     dims = _chain_dims(n)
     assert P.pusch_chain_plan(*dims) == ("warp" if n <= 32 else "cta")
     assert P.pusch_chain_plan(*dims, form="cta") == "cta"
+    assert P.channel_estimate_plan(*dims[:3]) == ("warp" if n <= 32
+                                                   else "cta")
+    assert P.channel_estimate_plan(*dims[:3], form="cta") == "cta"
 
 
 @pytest.mark.parametrize("n", SLOT_SIZES)
 def test_every_slot_and_dag_shape_fits_the_opt_in(n):
     """Every slot-mix and DAG lane takes the warp form within the 227 KB a
     CTA may opt into; at n = 32 a lane of K3 takes 17,984 bytes (12 an SM
-    by shared memory) and one of K6 10,976."""
+    by shared memory), one of K6 10,976, of K2 10,400 and of K5
+    10,672."""
     assert M.mmse_split_plan(*_split_dims(n), form="warp") == "warp"
     assert P.pusch_chain_plan(*_chain_dims(n), form="warp") == "warp"
+    assert M.mmse_form(*_split_dims(n), form="warp") == "warp"
+    assert P.channel_estimate_plan(*_chain_dims(n)[:3], form="warp") == \
+        "warp"
     assert M.mmse_split_warp_smem(*_split_dims(n)) <= CARD_SMEM_BYTES
     assert P.pusch_warp_smem(*_chain_dims(n)) <= CARD_SMEM_BYTES
+    assert M.mmse_warp_smem(*_split_dims(n)) <= CARD_SMEM_BYTES
     assert M.mmse_split_warp_smem(36, 32, 2) == 17984
     assert P.pusch_warp_smem(32, 64, 36, 2) == 10976
+    assert M.mmse_warp_smem(36, 32, 2) == 10400
+    assert P.pusch_warp_smem(32, 64, 36, 0) == 10672
 
 
 def test_lane_bytes_follow_their_formulas():
-    """4 (max(2n P(2n), 2 m n4 + 2 m k) + S(2n, k)) for K3 and
+    """4 (max(2n P(2n), 2 m n4 + 2 m k) + S(2n, k)) for K3,
     4 (max((n + m) (min(p, 32) | 1), n P(n) + n P(m)) + m k + S(n, k) +
-    n) for K6, each part rounded to 16 bytes; P the pitch, 4 modulo 8 and
-    past rows + 3, S the chain's scratch."""
+    n) for K6 (K5: k = 0) and 4 (m P(n) + m k + n P(n) + S(n, k)) for K2,
+    each part rounded to 16 bytes; P the pitch, 4 modulo 8 and past rows
+    + 3, S the chain's scratch."""
     up = lambda x: -(-x // 4) * 4                                # noqa: E731
     for rows in range(1, 65):
         pitch = W.warp_pitch(rows)
@@ -85,10 +101,14 @@ def test_lane_bytes_follow_their_formulas():
                 up(max(2 * n * W.warp_pitch(2 * n), 2 * m * n4 + 2 * m * k))
                 + W.warp_scratch_floats(2 * n, k))
             p = 2 * n
-            assert P.pusch_warp_smem(n, p, m, k) == 4 * up(
-                up(max((n + m) * (min(p, 32) | 1),
-                       n * W.warp_pitch(n) + n * W.warp_pitch(m)))
-                + up(m * k) + W.warp_scratch_floats(n, k) + n)
+            for kk in (k, 0):
+                assert P.pusch_warp_smem(n, p, m, kk) == 4 * up(
+                    up(max((n + m) * (min(p, 32) | 1),
+                           n * W.warp_pitch(n) + n * W.warp_pitch(m)))
+                    + up(m * kk) + W.warp_scratch_floats(n, kk) + n)
+            assert M.mmse_warp_smem(m, n, k) == 4 * (
+                m * W.warp_pitch(n) + up(m * k) + n * W.warp_pitch(n)
+                + up(W.warp_scratch_floats(n, k)))
 
 
 def test_warp_form_refused_past_its_limits():
@@ -110,6 +130,19 @@ def test_warp_form_refused_past_its_limits():
     assert M.mmse_split_plan(1000, 32, 2) == "cta"
     with pytest.raises(ValueError, match="form"):
         M.mmse_split_plan(36, 32, 2, form="global")
+    # K2: past n = 32 or k = 8; K5: past n = 32 or its tiles four a thread
+    with pytest.raises(ValueError, match="no warp form"):
+        M.mmse_form(37, 33, 2, form="warp")
+    with pytest.raises(ValueError, match="no warp form"):
+        M.mmse_form(36, 32, 9, form="warp")
+    assert M.mmse_form(36, 32, 9) == "wide"
+    with pytest.raises(ValueError, match="no warp form"):
+        P.channel_estimate_plan(33, 66, 37, form="warp")
+    with pytest.raises(ValueError, match="no warp form"):
+        P.channel_estimate_plan(32, 64, 48, form="warp")
+    assert P.channel_estimate_plan(32, 64, 48) == "cta"
+    with pytest.raises(ValueError, match="form"):
+        P.channel_estimate_plan(32, 64, 36, form="wide")
 
 
 def test_form_the_lane_cannot_take_is_refused_on_every_device():
@@ -132,6 +165,19 @@ def test_form_the_lane_cannot_take_is_refused_on_every_device():
         P.pusch_chain_fused(*pilots, form="global")
     assert torch.equal(P.pusch_chain_fused(*pilots, form="cta"),
                        P.pusch_chain_plain(*pilots))
+    h, y = t(2, 12, 8), t(2, 12, 2)
+    for form in (None, "warp", "wide", "cta"):
+        assert torch.equal(M.mmse_equalize_fused(h, y, form=form),
+                           M.mmse_equalize_plain(h, y))
+    with pytest.raises(ValueError, match="no warp form"):
+        M.mmse_equalize_fused(t(2, 40, 36), t(2, 40, 2), form="warp")
+    with pytest.raises(ValueError, match="form"):
+        M.mmse_equalize_fused(h, y, form="global")
+    for form in (None, "warp", "cta"):
+        assert torch.equal(P.channel_estimate_fused(*pilots[:2], form=form),
+                           P.channel_estimate_plain(*pilots[:2]))
+    with pytest.raises(ValueError, match="no warp form"):
+        P.channel_estimate_fused(t(2, 33, 8), t(2, 37, 8), form="warp")
 
 
 # ---------------- the schedule ----------------
@@ -249,16 +295,19 @@ def _deficient_lanes(rng, b, rows):
 
 
 @pytest.mark.parametrize("n", EMULATED)
-@pytest.mark.parametrize("kernel", ["K3", "K6 chain 1", "K6 chain 2"])
+@pytest.mark.parametrize("kernel", ["K3", "K6 chain 1", "K6 chain 2", "K2",
+                                    "K5"])
 def test_emulated_chain_agrees_with_the_plain_chain(n, kernel):
     """The warp chain in the kernel's element order (K3's 2n rows two a
     thread; K6's first chain with its m = n + 4 antennas as right-hand
-    sides, its second with k = 2) agrees with cholesky_chain_plain to
-    1e-6 relative on seeded SPD lanes, and takes the rank-deficient path
-    on the same columns of deficient lanes."""
+    sides, its second with k = 2; K2's chain, K6's second, at k = 3, an
+    odd instance of its registers; K5's, K6's first, on lanes of its own)
+    agrees with cholesky_chain_plain to 1e-6 relative on seeded SPD
+    lanes, and takes the rank-deficient path on the same columns of
+    deficient lanes."""
     rows = 2 * n if kernel == "K3" else n
-    m = n + 4 if kernel == "K6 chain 1" else 2
-    rng = np.random.default_rng(rows * 7 + m)
+    m = {"K6 chain 1": n + 4, "K5": n + 4, "K2": 3}.get(kernel, 2)
+    rng = np.random.default_rng(rows * 7 + m + 1000 * (kernel == "K5"))
     for a in (_spd(rng, 3, rows), _deficient_lanes(rng, 3, rows)):
         y = torch.from_numpy(
             rng.standard_normal((3, rows, m)).astype(np.float32))
